@@ -13,16 +13,27 @@ non-zero:
    240x128, an 80x80x20 space, 10 people in 64^3 cubes), holds the kernel
    against its plain PyTorch version on the card, and times kernel, plain
    version and, where one exists, a library call (CUDA events, warm-up
-   excluded, median);
-4. drives the serving path, `Predictor` at full width with seeded random
-   weights, on the card for 12 frames of Gaussian-blob heatmaps with every
-   launch count set to 0 just before, checks that every kernel ran, and
-   prints the device time by kernel over 3 frames (torch.profiler), and
+   excluded, median); then the same for the backbone's stem (5 images of
+   512x960) and its three deconv stages, on the seeded ResNet-50's own
+   activations, within one bf16 ulp;
+4. drives the heatmap serving path, `Predictor` at full width with seeded
+   random weights, on the card for 12 frames of Gaussian-blob heatmaps with
+   every launch count set to 0 just before, checks that every kernel ran,
+   and prints the device time by kernel over 3 frames (torch.profiler), and
    holds frame 0 against the same Predictor on the CPU (the plain path);
-5. prints one JSON line of the kernels, then the result line.
+5. drives the image serving path, the same Predictor with a seeded
+   ResNet-50 backbone, for 12 frames of seeded normalized 5x512x960 images
+   with every launch count set to 0 just before, checks that all seven
+   kernels ran, prints the frame latency, the profile and the frame's
+   parts timed one by one, and holds the card against the CPU: (a) the
+   backbone's heatmaps of view 0 against the plain backbone, (b) the
+   HDN+JLN on the card's heatmaps of frame 0 against the CPU on the same
+   heatmaps;
+6. prints one JSON line of the kernels, then the result line.
 
-float32 throughout: TF32 is switched off for cuDNN convs and matmuls, so
-that the card's plain path and the kernels compute in full float32.
+float32 outside the bf16 kernels: TF32 is switched off for cuDNN convs and
+matmuls, so that the card's plain path and the trunk compute in full
+float32.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import numpy as np
 
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12           # H100 SXM float32 outside the tensor cores
+PEAK_BF16 = 989e12          # H100 SXM bf16 on the tensor cores, dense
 FRAMES = 12
 WARMUP_FRAMES = 2
 # The seeded random weights below give detection confidences whose scale
@@ -45,6 +57,26 @@ WARMUP_FRAMES = 2
 # proposals of frame 0 through. Asserted: at least two pass, none lies
 # within 1e-4 of the gate.
 MIN_SCORE = 0.306
+# The image path's gate, for the seeded ResNet-50 and images below: their
+# frame-0 detection confidences are 0.338 .. 0.362, with 0.3535 below and
+# 0.3557 above this gate, which lets three through; the same two
+# assertions hold on it.
+MIN_SCORE_IMG = 0.3545
+# ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
+MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+STD = np.array([0.229, 0.224, 0.225], np.float32)
+# bf16 kernels against their plain versions: the two round the same float32
+# value to bf16 unless their float32 sums, taken in another order, straddle
+# a rounding boundary, so they differ by at most one bf16 ulp
+# (<= 2**-7 of the value) plus the float32 summation-order difference,
+# which over up to 8192 terms stays below 1e-4 of the output's scale.
+BF16_RTOL = 2.0 ** -7
+SUM_ATOL = 1e-4
+# The image path, card vs CPU: the trunk's float32 convs sum in another
+# order on each device, so a few bf16 roundings in the stem and head flip;
+# a float64 against a float32 trunk on the CPU moves the heatmaps by
+# 2.6e-3 of their scale this way, and this bound leaves a factor ~8.
+HM_RTOL = 2e-2
 
 
 def log(*a):
@@ -119,9 +151,42 @@ def blob_heatmaps(cfg, rig, seed: int, people: int = 4) -> np.ndarray:
     return out
 
 
+def seeded_images(cfg, seed: int, frames: int = 1) -> np.ndarray:
+    """(frames, V, H, W, 3) float32 normalized images: smooth random colour
+    fields (bilinear upsampling of a 1/16-resolution random image) plus
+    pixel noise, in 0..1, normalized with the ImageNet mean and std."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    w, h = cfg.image_size
+    n = frames * cfg.num_views
+    low = torch.from_numpy(rng.rand(n, 3, h // 16, w // 16)
+                           .astype(np.float32))
+    img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear",
+                                          align_corners=False).numpy()
+    img = img + 0.05 * rng.randn(*img.shape).astype(np.float32)
+    img = np.clip(img, 0.0, 1.0).transpose(0, 2, 3, 1)
+    img = np.ascontiguousarray((img - MEAN) / STD, dtype=np.float32)
+    return img.reshape(frames, cfg.num_views, h, w, 3)
+
+
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
+
+def bf16_close(got, ref) -> tuple[float, float]:
+    """(max abs error, worst error in bf16 ulps) of a bf16 kernel output
+    against its plain version: the ulps are (|err| - SUM_ATOL * scale) /
+    (BF16_RTOL * max(|got|, |ref|)), so the two agree iff they are <= 1."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    mag = torch.maximum(g.abs(), r.abs())
+    atol = SUM_ATOL * float(r.abs().max())
+    ulps = (err - atol).clamp(min=0) / (BF16_RTOL * mag).clamp(min=1e-30)
+    return float(err.max()), float(ulps.max())
+
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of per-call CUDA-event times, warm-up excluded."""
@@ -142,8 +207,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32
+          ) -> tuple[float, str]:
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -189,9 +255,11 @@ def main() -> int:
         return 2
     import fvp_torch.ops.kernels as K
     from fvp_torch.config import FVPConfig
+    from fvp_torch.engine.packing import pack_backbone
     from fvp_torch.engine.serve import Predictor
     from fvp_torch.geometry.cameras import default_ring_rig
     from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.models.resnet import PoseResNet, seeded_state_dict
     from fvp_torch.ops.kernels import _build
     from fvp_torch.ops.kernels import centernet as kcn
     from fvp_torch.ops.kernels import sampler as ksamp
@@ -227,6 +295,13 @@ def main() -> int:
     state = random_state_dict(FasterVoxelPose(cfg), seed=0)
     pred = Predictor.from_state_dict(cfg, state, rig, device=dev)
     frames = [blob_heatmaps(cfg, rig, seed=s) for s in range(3)]
+    # the image predictor: the same HDN+JLN behind a seeded ResNet-50
+    cfg_img = FVPConfig(min_score=MIN_SCORE_IMG)
+    bb_state = seeded_state_dict(
+        PoseResNet(cfg_img.num_joints, cfg_img.resnet_layers), seed=0)
+    pred_img = Predictor.from_state_dict(cfg_img, state, rig, device=dev,
+                                         backbone_state_dict=bb_state)
+    images = seeded_images(cfg_img, seed=0, frames=3)
     hm = torch.as_tensor(frames[0], device=dev)
     rc, packed, model = pred.rc, pred.packed, pred.model
     V, J = cfg.num_views, cfg.num_joints
@@ -355,10 +430,211 @@ def main() -> int:
                bound(nbytes(feats, w_k, *_leaves(packed["weight_net"])),
                      Nn * J * A * Bb * C * (9 * 2.0 + 2) + Nn * J * C * 2))
 
-    # 4. the serving path: counts to 0, frames, counts read back
+        # the backbone's kernels on its own activations of image frame 0
+        backbone_kernels(pred_img, images[0], rows)
+
+    # 4. the heatmap serving path: counts to 0, frames, counts read back
+    outs, lat, launches = drive(pred, frames, K, kcn)
+    log(f"serving path: {FRAMES} frames, launches {launches}")
+    for name in ("whole_sample", "person_planes", "centernet", "soft_argmax",
+                 "weightnet_pool"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the path")
+    steady = lat[WARMUP_FRAMES:]
+    log_latency("frame latency", lat)
+    profile_frames(pred, frames)
+
+    # frame 0 against the plain path on the CPU
+    cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu")
+    check_poses(outs[0], cpu, hm, "")
+
+    # 5. the image serving path: counts to 0, frames, counts read back
+    img_frames = [im[None] for im in images]
+    outs, lat, img_launches = drive(pred_img, img_frames, K, kcn)
+    log(f"image path: {FRAMES} frames, launches {img_launches}")
+    for name, c in img_launches.items():
+        if c <= 0:
+            raise AssertionError(f"{name} was not launched on the image "
+                                 "path")
+    img_steady = lat[WARMUP_FRAMES:]
+    log_latency("image frame latency", lat)
+    profile_frames(pred_img, img_frames)
+    image_breakdown(pred_img, img_frames[0])
+
+    # (a) the backbone's heatmaps, view 0, against the plain backbone
+    hm_img = pred_img.heatmaps(img_frames[0])             # (1, V, J, h, w)
+    bb_cpu = PoseResNet(cfg_img.num_joints, cfg_img.resnet_layers)
+    bb_cpu.load_state_dict(bb_state)
+    bb_cpu.eval()
+    with torch.inference_mode():
+        ref = bb_cpu(torch.from_numpy(images[0][:1]),
+                     pack_backbone(bb_cpu))[0].permute(2, 0, 1)
+    got = hm_img[0, 0].cpu()
+    scale = float(ref.abs().max())
+    spread = float(ref.std(dim=(1, 2)).min())
+    err = float((got - ref).abs().max())
+    log(f"heatmaps {tuple(hm_img.shape)}: view 0 card vs CPU max_abs_err "
+        f"{err:.3e}, scale {scale:.3e} (tol {HM_RTOL} x scale); smallest "
+        f"per-joint std {spread:.3e}")
+    if not (torch.isfinite(got).all() and spread > 1e-2 * scale > 0):
+        raise AssertionError("heatmaps non-finite or without spread")
+    if not err <= HM_RTOL * scale:
+        raise AssertionError("heatmaps differ between card and CPU")
+    # (b) the HDN+JLN on those heatmaps: the card's frame 0 against the CPU
+    cpu_img = Predictor.from_state_dict(cfg_img, state, rig, device="cpu")
+    check_poses(outs[0], cpu_img, hm_img, "image path ")
+
+    kernels = []
+    for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
+                 "centernet", "soft_argmax", "weightnet_pool"):
+        row = dict(rows[name])
+        row["launches"] = img_launches[name]
+        row["launches_heatmap_path"] = launches[name]
+        kernels.append(row)
+    log(json.dumps({"kernels": kernels,
+                    "frame_ms_median": statistics.median(steady),
+                    "image_frame_ms_median": statistics.median(img_steady),
+                    "card": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def backbone_kernels(pred, images_np, rows) -> None:
+    """Phase 3 for the stem and the deconv head: each kernel against its
+    plain version, within one bf16 ulp (BF16_RTOL, SUM_ATOL), on the seeded
+    backbone's own activations of one frame, and timed with a bf16 cuDNN
+    call of the same conv as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from fvp_torch.ops.kernels import deconv_head as kdh
+    from fvp_torch.ops.kernels import stem as kst
+
+    cl = torch.channels_last
+    pk = pred.backbone_packed
+    x = torch.as_tensor(images_np, device=pred.device).contiguous()
+    ps = pk["stem"]
+    got, ref = kst.stem(x, ps), kst.stem_plain(x, ps)
+    torch.cuda.synchronize()
+    err, ulps = bf16_close(got, ref)
+    N, H, W, _ = x.shape
+    convs = N * kst.out_size(H)[0] * kst.out_size(W)[0] * 64
+    xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wl = ps["w"].permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    rows["stem"] = {
+        "name": "stem", "route": "cuda", "source": "fvp_torch/csrc/stem.cu",
+        "replaces": "fvp_tpu/ops/pallas/stem.py:127", **bf16_row(
+            "stem", err, ulps, time_ms(lambda: kst.stem(x, ps)),
+            time_ms(lambda: kst.stem_plain(x, ps)),
+            time_ms(lambda: F.conv2d(xl, wl, stride=2, padding=3)),
+            bound(nbytes(x, ps["w"], ps["aff"], got),
+                  convs * (2.0 * 7 * 7 * 3 + 2), PEAK_BF16))}
+
+    # stage 1 reads the trunk's float32 output, the others the stage before
+    xs = pred.backbone.trunk(ref)
+    stages = []
+    for i, st in enumerate(pk["head"]):
+        got, ref = kdh.deconv_stage(xs, st), kdh.deconv_stage_plain(xs, st)
+        torch.cuda.synchronize()
+        err, ulps = bf16_close(got, ref)
+        V, h, w, C = xs.shape
+        Fo = st["w"].shape[-1]
+        xl = xs.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wt = kdh.unpack_deconv_weight(st["w"]).to(torch.bfloat16) \
+            .contiguous(memory_format=cl)
+        outs = V * 4 * h * w * Fo
+        stages.append(bf16_row(
+            f"deconv_stage{i + 1} {tuple(xs.shape)} {xs.dtype}", err, ulps,
+            time_ms(lambda: kdh.deconv_stage(xs, st)),
+            time_ms(lambda: kdh.deconv_stage_plain(xs, st)),
+            time_ms(lambda: F.conv_transpose2d(xl, wt, stride=2,
+                                               padding=1)),
+            bound(nbytes(xs, st["w"], st["aff"], got),
+                  outs * (2.0 * 4 * C + 2), PEAK_BF16)))
+        xs = ref
+    head = {k: sum(s[k] for s in stages)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    rows["deconv_stage"] = {
+        "name": "deconv_stage", "route": "cuda",
+        "source": "fvp_torch/csrc/deconv_head.cu",
+        "replaces": "fvp_tpu/ops/pallas/deconv_head.py:151 + "
+                    "fvp_tpu/ops/pallas/deconv_head.py:190",
+        "max_abs_err": max(s["max_abs_err"] for s in stages),
+        "max_ulps": max(s["max_ulps"] for s in stages),
+        **head, "bound_by": "operations", "stages": stages}
+    log(f"deconv_stage, the 3-stage head: kernel_ms={head['ms']:.4f} "
+        f"plain_ms={head['plain_ms']:.4f} library_ms="
+        f"{head['library_ms']:.4f} bound_ms={head['bound_ms']:.4f}")
+
+
+def bf16_row(name, err, ulps, ms, plain_ms, lib_ms, bnd) -> dict:
+    """Log and check one bf16 kernel's comparison; its measurements."""
+    log(f"{name}: max_abs_err={err:.3e} max_ulps={ulps:.3f} (tol 1 bf16 "
+        f"ulp + {SUM_ATOL:.0e} x scale) kernel_ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bnd[0]:.4f} "
+        f"({bnd[1]})")
+    if not ulps <= 1.0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version by {ulps} bf16 ulps")
+    return {"name": name, "max_abs_err": err, "max_ulps": ulps, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": lib_ms}
+
+
+def image_breakdown(pred, frame) -> None:
+    """The image frame's parts, each timed alone (CUDA events around the
+    call, median of 20): the pageable host-to-device copy of the images,
+    the stem, the float32 cuDNN trunk, the three deconv launches,
+    final_layer and the HDN+JLN (whose host gaps between launches count).
+    Beside them, the trunk on contiguous NCHW tensors instead of the
+    port's channels-last ones, as a yardstick for its layout."""
+    import torch
+    from fvp_torch.ops.kernels.deconv_head import deconv_head
+    from fvp_torch.ops.kernels.stem import stem
+
+    bb, pk = pred.backbone, pred.backbone_packed
+
+    def trunk_nchw(x):
+        for li in range(1, 5):
+            x = getattr(bb, f"layer{li}")(x)
+        return x
+
+    with torch.inference_mode():
+        x = torch.as_tensor(frame, device=pred.device)
+        flat = x.reshape(-1, *x.shape[2:])
+        s = stem(flat, pk["stem"])
+        t = bb.trunk(s)
+        h = deconv_head(t, pk["head"]).float().permute(0, 3, 1, 2)
+        hm = pred.heatmaps(frame)
+        s_nchw = s.float().permute(0, 3, 1, 2).contiguous()
+        parts = {
+            "host-to-device copy of the images (pageable)": time_ms(
+                lambda: torch.as_tensor(frame, device=pred.device)),
+            "stem kernel": time_ms(lambda: stem(flat, pk["stem"])),
+            "trunk (float32 cuDNN, TF32 off, channels-last)": time_ms(
+                lambda: bb.trunk(s)),
+            "head (3 deconv launches)": time_ms(
+                lambda: deconv_head(t, pk["head"])),
+            "final_layer": time_ms(lambda: bb.final_layer(h)),
+            "HDN+JLN on the heatmaps": time_ms(
+                lambda: pred.model(hm, pred.rc, pred.packed)),
+        }
+        nchw = time_ms(lambda: trunk_nchw(s_nchw))
+    log("image frame by part (each timed alone):")
+    for name, ms in parts.items():
+        log(f"  {ms:8.3f} ms  {name}")
+    log(f"  {sum(parts.values()):8.3f} ms  sum; the trunk on contiguous "
+        f"NCHW (a yardstick, not the port's path): {nchw:.3f} ms")
+
+
+def drive(pred, frames, K, kcn):
+    """Every launch count to 0, FRAMES frames through `pred`, the counts
+    read back. Returns (outputs, host-clock ms per frame, launches)."""
+    import torch
+
     K.reset_launches()
-    lat = []
-    outs = []
+    lat, outs = [], []
     for i in range(FRAMES):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -367,33 +643,38 @@ def main() -> int:
         lat.append((time.perf_counter() - t) * 1e3)
         outs.append(out)
     counts = {k.name: k.launches for k in K.all_kernels().values()}
-    launches = {
-        "whole_sample": counts["whole_sample"],
-        "person_planes": counts["person_planes"],
-        "centernet": kcn.launches(),
-        "soft_argmax": counts["soft_argmax"],
-        "weightnet_pool": counts["weightnet_pool"],
-    }
-    log(f"serving path: {FRAMES} frames, launches {launches}")
-    for name, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"{name} was not launched on the path")
+    launches = {name: counts[name] for name in (
+        "stem", "deconv_stage", "whole_sample", "person_planes")}
+    launches["centernet"] = kcn.launches()
+    for name in ("soft_argmax", "weightnet_pool"):
+        launches[name] = counts[name]
+    return outs, lat, launches
+
+
+def log_latency(what, lat) -> None:
     steady = lat[WARMUP_FRAMES:]
-    log(f"frame latency: median {statistics.median(steady):.3f} ms over "
+    log(f"{what}: median {statistics.median(steady):.3f} ms over "
         f"{len(steady)} frames (host clock, synchronised; first "
-        f"{WARMUP_FRAMES} excluded: {', '.join(f'{x:.1f}' for x in lat[:WARMUP_FRAMES])} ms)")
+        f"{WARMUP_FRAMES} excluded: "
+        f"{', '.join(f'{x:.1f}' for x in lat[:WARMUP_FRAMES])} ms)")
 
-    profile_frames(pred, frames)
 
-    # frame 0 against the plain path on the CPU
-    ref = Predictor.from_state_dict(cfg, state, rig, device="cpu")(frames[0])
-    got = {k: v.cpu() for k, v in outs[0].items()}
+def check_poses(out, cpu, hm, label) -> None:
+    """The card's output `out` of a frame whose heatmaps are `hm` against
+    the CPU predictor `cpu` on the same heatmaps: a non-vacuous gate clear
+    of min_score, identical masks, fused poses within 5e-2 mm."""
+    import torch
+
+    ref = cpu(hm.cpu())
+    got = {k: v.cpu() for k, v in out.items()}
     with torch.inference_mode():
-        conf = model.detect(hm, rc, packed)["proposals"][0, :, 4].cpu()
+        conf = cpu.model.detect(hm.cpu(), cpu.rc, cpu.packed)[
+            "proposals"][0, :, 4]
+    min_score = cpu.cfg.min_score
     passed = int(ref["mask"].sum())
-    log(f"proposals passing min_score={cfg.min_score}: {passed}; "
+    log(f"{label}proposals passing min_score={min_score}: {passed}; "
         f"detection confidences {[round(float(c), 4) for c in conf]}")
-    gap = float((conf - cfg.min_score).abs().min())
+    gap = float((conf - min_score).abs().min())
     if passed < 2 or gap <= 1e-4:
         raise AssertionError(f"vacuous or fragile gate: {passed} pass, "
                              f"closest confidence {gap} from min_score")
@@ -404,23 +685,10 @@ def main() -> int:
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{k}: shape {tuple(a.shape)} or non-finite")
     err = float((got["fused_poses"] - ref["fused_poses"]).abs().max())
-    log(f"fused_poses {tuple(got['fused_poses'].shape)}: card vs CPU "
+    log(f"{label}fused_poses {tuple(got['fused_poses'].shape)}: card vs CPU "
         f"max_abs_err {err:.3e} mm (tol 5e-2 mm)")
     if not err <= 5e-2:
         raise AssertionError("fused_poses differ between card and CPU")
-
-    kernels = []
-    for name in ("whole_sample", "person_planes", "centernet",
-                 "soft_argmax", "weightnet_pool"):
-        row = dict(rows[name])
-        row["launches"] = launches[name]
-        kernels.append(row)
-    log(json.dumps({"kernels": kernels, "frame_ms_median":
-                    statistics.median(steady), "card": smi}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 def profile_frames(pred, frames, n: int = 3) -> None:

@@ -1,6 +1,6 @@
-// Shared helpers of the port's kernels: float32 only, plain C entry points
-// (bound with ctypes), every launch on the caller's stream, and every entry
-// returns cudaGetLastError() so that the Python wrapper can raise.
+// Shared helpers of the port's kernels: plain C entry points (bound with
+// ctypes), every launch on the caller's stream, and every entry returns
+// cudaGetLastError() so that the Python wrapper can raise.
 #pragma once
 
 #include <cuda_runtime.h>

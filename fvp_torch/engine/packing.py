@@ -5,7 +5,9 @@ WeightNet's conv front end, with conv bias and BatchNorm running stats
 folded into a per-channel affine (scale a = gamma / sqrt(var + eps),
 shift = a * conv_bias + beta - mean * a), and kernels laid out for the NHWC
 kernels: (k, k, Cin, Cout) for a conv, (2, 2, Cin, Cout) for a transposed
-conv, (9, C) for WeightNet's single-input-channel conv.
+conv, (9, C) for WeightNet's single-input-channel conv. The backbone's
+stem and deconv-head weights are packed in bf16, the type their kernels
+read (`pack_backbone`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from fvp_torch.models.blocks import ResBlock, UpsampleBlock
 from fvp_torch.models.cnns import CenterNet, WeightNet
+from fvp_torch.ops.kernels.deconv_head import pack_deconv_weight
 
 _ENC = ("skip_res1", "encoder_res1", "skip_res2", "encoder_res2", "mid_res",
         "decoder_res2", "decoder_res1")
@@ -72,6 +75,27 @@ def pack_weightnet(net: WeightNet) -> dict:
     C = conv.weight.shape[0]
     return {"w": conv.weight.detach().reshape(C, 9).t().contiguous(),
             "scale": scale.contiguous(), "shift": shift.contiguous()}
+
+
+def bn_affine(bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm running stats folded into a (2, F) float32 (a, b) affine:
+    a = gamma / sqrt(var + 1e-5), b = beta - mean * a."""
+    a = bn.weight / torch.sqrt(bn.running_var + 1e-5)
+    return torch.stack([a, bn.bias - bn.running_mean * a]).detach() \
+        .float().contiguous()
+
+
+@torch.no_grad()
+def pack_backbone(model) -> dict:
+    """Packed weights of a PoseResNet's stem and deconv-head kernels, on the
+    model's device, in bf16: {"stem": {"w": (7, 7, 3, 64), "aff"},
+    "head": [{"w": (4, 4, Cin, F) per parity and tap, "aff"}, ...]}."""
+    stem = {"w": model.conv1.weight.detach().permute(2, 3, 1, 0)
+            .to(torch.bfloat16).contiguous(), "aff": bn_affine(model.bn1)}
+    layers = list(model.deconv_layers)
+    head = [{"w": pack_deconv_weight(conv.weight), "aff": bn_affine(bn)}
+            for conv, bn in zip(layers[0::3], layers[1::3])]
+    return {"stem": stem, "head": head}
 
 
 def pack_model(model) -> dict:

@@ -1,5 +1,6 @@
 """Reference-package (flax) variables -> port state dict.
 
+`from_jax_backbone_variables` does the same for the PoseResNet backbone.
 `from_jax_variables` maps the flax `{'params', 'batch_stats'}` tree of the
 HDN+JLN task nets, given as numpy arrays, onto the port's modules, whose
 keys are the reference model's (`pose_net.center_net.*`,
@@ -129,4 +130,44 @@ def from_jax_variables(variables_np: Mapping[str, Any]
          s["BatchNorm_0"])
     w.dense("joint_net.weight_net.output.0", p["Dense_0"])
     w.dense("joint_net.weight_net.output.2", p["Dense_1"])
+    return w.out
+
+
+def from_jax_backbone_variables(variables_np: Mapping[str, Any]
+                                ) -> dict[str, torch.Tensor]:
+    """flax {'params', 'batch_stats'} tree of the reference PoseResNet
+    (numpy leaves) -> the port's PoseResNet state dict. Flax names: `conv1`,
+    `bn1`, `layer{l}_{b}` with `conv{k}`, `bn{k}`, `down_conv`, `down_bn`;
+    `deconv{i}`, `deconv_bn{i}`, `final_layer`; each BN holds a
+    `BatchNorm_0`."""
+    params, stats = variables_np["params"], variables_np["batch_stats"]
+    w = _Writer()
+
+    def conv(dst, src):
+        w.put(f"{dst}.weight", _conv_w(np.asarray(src["kernel"])))
+
+    def bn(dst, p, s):
+        w.bn(dst, p["BatchNorm_0"], s["BatchNorm_0"])
+
+    conv("conv1", params["conv1"])
+    bn("bn1", params["bn1"], stats["bn1"])
+    blocks = sorted((tuple(int(i) for i in k[5:].split("_")), k)
+                    for k in params if k.startswith("layer"))
+    for (li, bi), name in blocks:
+        p, s, dst = params[name], stats[name], f"layer{li}.{bi}"
+        for k in sorted(p):
+            if k.startswith("conv"):
+                conv(f"{dst}.{k}", p[k])
+                bn(f"{dst}.bn{k[4:]}", p[f"bn{k[4:]}"], s[f"bn{k[4:]}"])
+        if "down_conv" in p:
+            conv(f"{dst}.downsample.0", p["down_conv"])
+            bn(f"{dst}.downsample.1", p["down_bn"], s["down_bn"])
+    di = 0
+    while f"deconv{di}" in params:
+        w.put(f"deconv_layers.{3 * di}.weight",
+              _deconv_w(np.asarray(params[f"deconv{di}"]["kernel"])))
+        bn(f"deconv_layers.{3 * di + 1}", params[f"deconv_bn{di}"],
+           stats[f"deconv_bn{di}"])
+        di += 1
+    w.conv("final_layer", params["final_layer"])
     return w.out

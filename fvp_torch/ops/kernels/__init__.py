@@ -53,12 +53,12 @@ def check(t: torch.Tensor, name: str, shape=None,
 
 
 def all_kernels() -> dict[str, Kernel]:
-    """name -> Kernel for the five kernels of the serving path."""
-    from fvp_torch.ops.kernels import centernet, sampler, softargmax
-    from fvp_torch.ops.kernels import weightnet
-    ks = [sampler.WHOLE_SAMPLE, sampler.PERSON_PLANES, centernet.CONV,
-          centernet.POOL, centernet.UPCONV, softargmax.SOFT_ARGMAX,
-          weightnet.WEIGHTNET_POOL]
+    """name -> Kernel for the kernels of the serving path."""
+    from fvp_torch.ops.kernels import centernet, deconv_head, sampler
+    from fvp_torch.ops.kernels import softargmax, stem, weightnet
+    ks = [stem.STEM, deconv_head.DECONV, sampler.WHOLE_SAMPLE,
+          sampler.PERSON_PLANES, centernet.CONV, centernet.POOL,
+          centernet.UPCONV, softargmax.SOFT_ARGMAX, weightnet.WEIGHTNET_POOL]
     return {k.name: k for k in ks}
 
 

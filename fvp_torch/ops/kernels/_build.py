@@ -37,6 +37,8 @@ SIGNATURES = {
     "fvp_upconv2_nhwc": [_P] * 6 + [_I] * 5 + [_P],
     "fvp_soft_argmax": [_P] * 5 + [_I] * 4 + [_F, _P],
     "fvp_weightnet_pool": [_P] * 5 + [_I] * 5 + [_P],
+    "fvp_stem": [_P] * 4 + [_I] * 7 + [_P],
+    "fvp_deconv_stage": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib = None

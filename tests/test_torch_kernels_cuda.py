@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach: 17 joints, 16- and 32-voxel cubes,
-dead and unmatched persons, batches of two, odd pyramid widths.
+dead and unmatched persons, batches of two, odd pyramid widths, ragged
+stem and deconv tiles, a 2048-channel deconv input.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -23,8 +24,10 @@ from fvp_torch.geometry.grids import build_rig_constants
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
 from fvp_torch.ops.kernels import all_kernels, reset_launches
 from fvp_torch.ops.kernels import centernet as kcn
+from fvp_torch.ops.kernels import deconv_head as kdh
 from fvp_torch.ops.kernels import sampler as ksamp
 from fvp_torch.ops.kernels import softargmax as ksa
+from fvp_torch.ops.kernels import stem as kst
 from fvp_torch.ops.kernels import weightnet as kwn
 
 pytestmark = pytest.mark.cuda
@@ -138,6 +141,57 @@ def test_weightnet_pool_kernel(dev, shape):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
+def _assert_within_one_bf16_ulp(got, ref):
+    """bf16 kernel vs its plain version: the same float32 sums in another
+    order, rounded to bf16, so one bf16 ulp (2**-7 of the value) plus the
+    float32 summation-order difference (1e-4 of the scale)."""
+    g, r = got.float(), ref.float()
+    assert g.shape == r.shape and got.dtype == ref.dtype == torch.bfloat16
+    bound = 2.0 ** -7 * torch.maximum(g.abs(), r.abs()) \
+        + 1e-4 * float(r.abs().max())
+    assert bool(((g - r).abs() <= bound).all()), \
+        float(((g - r).abs() - bound).max())
+    assert float(r.abs().max()) > 0
+
+
+def _bn_aff(rng, f, dev):
+    return torch.as_tensor(np.stack([rng.rand(f) + 0.5, rng.randn(f) * 0.1])
+                           .astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 100, 90), (1, 37, 61), (3, 64, 64)])
+def test_stem_kernel(dev, N, H, W):
+    """Ragged pooled tiles in both directions, and odd conv maps whose far
+    pool windows hang over the edge."""
+    rng = np.random.RandomState(H)
+    x = torch.as_tensor(rng.randn(N, H, W, 3).astype(np.float32), device=dev)
+    packed = {"w": torch.as_tensor(rng.randn(7, 7, 3, 64).astype(np.float32)
+                                   * 0.1, device=dev).to(torch.bfloat16),
+              "aff": _bn_aff(rng, 64, dev)}
+    got = kst.stem(x, packed)
+    ref = kst.stem_plain(x, packed)
+    assert got.shape == (N, kst.out_size(H)[1], kst.out_size(W)[1], 64)
+    _assert_within_one_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("V,H,W,C,F,dtype", [
+    (2, 5, 7, 2048, 256, torch.float32),      # Cin 2048, ragged M tile
+    (1, 9, 13, 64, 128, torch.bfloat16),
+    (3, 16, 30, 256, 256, torch.bfloat16),
+])
+def test_deconv_stage_kernel(dev, V, H, W, C, F, dtype):
+    rng = np.random.RandomState(C + W)
+    x = torch.as_tensor(rng.randn(V, H, W, C).astype(np.float32),
+                        device=dev).to(dtype)
+    w = torch.as_tensor(rng.randn(C, F, 4, 4).astype(np.float32)
+                        / np.sqrt(4 * C), device=dev)
+    packed = {"w": kdh.pack_deconv_weight(w), "aff": _bn_aff(rng, F, dev)}
+    got = kdh.deconv_stage(x, packed)
+    ref = kdh.deconv_stage_plain(x, packed)
+    assert got.shape == (V, 2 * H, 2 * W, F)
+    _assert_within_one_bf16_ulp(got, ref)
+
+
 def test_wrappers_reject_bad_cuda_input(dev):
     cfg = _cfg(15, 16)
     _, _, rc, hm = _inputs(cfg, dev)
@@ -148,6 +202,11 @@ def test_wrappers_reject_bad_cuda_input(dev):
         ksa.soft_argmax(torch.zeros((3, 2, 64, 15), device=dev,
                                     dtype=torch.float64),
                         torch.zeros((3, 64, 2), device=dev), 100.0)
+    with pytest.raises(ValueError, match="F % 128"):
+        kdh.deconv_stage(torch.zeros((1, 2, 2, 64), device=dev),
+                         {"w": torch.zeros((4, 4, 64, 96), device=dev,
+                                           dtype=torch.bfloat16),
+                          "aff": torch.zeros((2, 96), device=dev)})
 
 
 def test_predictor_cuda_matches_cpu(dev):
@@ -165,7 +224,9 @@ def test_predictor_cuda_matches_cpu(dev):
     reset_launches()
     got = pred(hm)
     counts = {n: k.launches for n, k in all_kernels().items()}
+    backbone = {n: counts.pop(n) for n in ("stem", "deconv_stage")}
     assert all(c > 0 for c in counts.values()), counts
+    assert all(c == 0 for c in backbone.values()), backbone
     ref = Predictor.from_state_dict(cfg, state, rig, device="cpu")(hm)
     assert int(ref["mask"].sum()) >= 2
     with torch.inference_mode():
@@ -174,5 +235,42 @@ def test_predictor_cuda_matches_cpu(dev):
     conf = det["proposals"][..., 4]
     assert float((conf - cfg.min_score).abs().min()) > 1e-4
     assert torch.equal(got["mask"].cpu(), ref["mask"])
+    torch.testing.assert_close(got["fused_poses"].cpu(), ref["fused_poses"],
+                               rtol=1e-5, atol=5e-2)
+
+
+def test_image_predictor_cuda_matches_cpu(dev):
+    """The image path on the card through all seven kernels: a seeded
+    ResNet-18 at 128x256, its heatmaps against the CPU's (the trunk's
+    float32 sums in another order flip a few bf16 roundings in the stem and
+    head: 2e-2 of the scale, as chip_smoke.py states), and the HDN+JLN on
+    the card's heatmaps against the CPU on the same heatmaps, every
+    proposal through the gate."""
+    from chip_smoke import random_state_dict
+
+    from fvp_torch.models.resnet import PoseResNet, seeded_state_dict
+
+    cfg = _cfg(15, 16, min_score=-10.0).replace(
+        image_size=(256, 128), heatmap_size=(64, 32), resnet_layers=18)
+    _, rig, _, _ = _inputs(cfg, dev)
+    state = random_state_dict(FasterVoxelPose(cfg), seed=3)
+    bb = seeded_state_dict(PoseResNet(15, 18), seed=1)
+    images = np.random.RandomState(2).randn(1, 3, 128, 256, 3).astype(
+        np.float32)
+    pred = Predictor.from_state_dict(cfg, state, rig, device=dev,
+                                     backbone_state_dict=bb)
+    reset_launches()
+    got = pred(images)
+    counts = {n: k.launches for n, k in all_kernels().items()}
+    assert all(c > 0 for c in counts.values()), counts
+    cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu",
+                                    backbone_state_dict=bb)
+    hm = pred.heatmaps(images)
+    hm_cpu = cpu.heatmaps(images)
+    scale = float(hm_cpu.abs().max())
+    torch.testing.assert_close(hm.cpu(), hm_cpu, rtol=0, atol=2e-2 * scale)
+    ref = Predictor.from_state_dict(cfg, state, rig, device="cpu")(hm.cpu())
+    assert torch.equal(got["mask"].cpu(), ref["mask"])
+    assert bool(ref["mask"].all())
     torch.testing.assert_close(got["fused_poses"].cpu(), ref["fused_poses"],
                                rtol=1e-5, atol=5e-2)
