@@ -13,9 +13,12 @@ non-zero:
    240x128, an 80x80x20 space, 10 people in 64^3 cubes), holds the kernel
    against its plain PyTorch version on the card, and times kernel, plain
    version and, where one exists, a library call (CUDA events, warm-up
-   excluded, median); then the same for the backbone's stem (5 images of
-   512x960) and its three deconv stages, on the seeded ResNet-50's own
-   activations, within one bf16 ulp;
+   excluded, median); then the same for the `fuse_p2p` kernels, P2PNet on
+   K2's planes and C2CNet on frame 0's z-columns, for the backbone's stem
+   (5 images of 512x960) and its three deconv stages, and for the
+   bottleneck stage on the seeded ResNet-50's own layer1 input, within one
+   bf16 ulp (P2PNet and the stage launch by launch; C2CNet, one launch,
+   as a whole);
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -29,7 +32,13 @@ non-zero:
    backbone's heatmaps of view 0 against the plain backbone, (b) the
    HDN+JLN on the card's heatmaps of frame 0 against the CPU on the same
    heatmaps;
-6. prints one JSON line of the kernels, then the result line.
+6. drives the `fuse_p2p` serving path, the heatmap Predictor with
+   `fuse_p2p=True`, for 12 frames with every launch count set to 0 just
+   before, checks that p2pnet and c2cnet ran with K1..K5, prints its
+   latency and profile and holds frame 0 against the CPU; then drives the
+   bottleneck stage's entry point on the layer1 inputs of the 3 image
+   frames, counts at 0 just before (no model path runs it);
+7. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels: TF32 is switched off for cuDNN convs and
 matmuls, so that the card's plain path and the trunk compute in full
@@ -62,6 +71,21 @@ MIN_SCORE = 0.306
 # 0.3557 above this gate, which lets three through; the same two
 # assertions hold on it.
 MIN_SCORE_IMG = 0.3545
+# The fuse_p2p path's gate, for the same weights and heatmaps: its bf16
+# C2CNet moves the frame-0 confidences a little from the float32 module's
+# (0.2951 .. 0.3174, 0.3043 below and 0.3100 above this gate), and the same
+# three pass; the same two assertions hold on it.
+MIN_SCORE_FUSE = 0.306
+# Whole bf16 nets against their plain versions: each launch is held at one
+# bf16 ulp alone (P2PNet, the bottleneck stage), but a flip early in a net
+# carries on through the layers after it, so the nets' outputs are held at
+# a fraction of their scale, as tests/test_torch_fuse_p2p.py holds the
+# plain versions against the reference (measured there: 2.7e-3 for P2PNet,
+# 3.6e-3 for the stage, 0 for C2CNet).
+NET_RTOL = 1e-2
+# fuse_p2p path, card vs CPU, in mm: bf16 flips between the card's and the
+# CPU's sums move the soft-argmax (beta 100) coordinates.
+FUSE_POSE_TOL_MM = 1.0
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -207,6 +231,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time to enqueue one call of fn: the Python wrappers and
+    the launches, not the device work (synchronised outside the timed
+    region)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FP32
           ) -> tuple[float, str]:
     tb, to = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
@@ -302,6 +343,9 @@ def main() -> int:
     pred_img = Predictor.from_state_dict(cfg_img, state, rig, device=dev,
                                          backbone_state_dict=bb_state)
     images = seeded_images(cfg_img, seed=0, frames=3)
+    # the fuse_p2p predictor: the same weights, C2CNet and P2PNet as kernels
+    cfg_fuse = FVPConfig(backbone="", fuse_p2p=True, min_score=MIN_SCORE_FUSE)
+    pred_fuse = Predictor.from_state_dict(cfg_fuse, state, rig, device=dev)
     hm = torch.as_tensor(frames[0], device=dev)
     rc, packed, model = pred.rc, pred.packed, pred.model
     V, J = cfg.num_views, cfg.num_joints
@@ -430,16 +474,18 @@ def main() -> int:
                bound(nbytes(feats, w_k, *_leaves(packed["weight_net"])),
                      Nn * J * A * Bb * C * (9 * 2.0 + 2) + Nn * J * C * 2))
 
+        # the fuse_p2p kernels: P2PNet on K2's planes, C2CNet on frame 0's
+        # z-columns
+        fuse_kernels(pred_fuse, hm, planes_k.reshape(3 * 10, n, n, J), rows)
+
         # the backbone's kernels on its own activations of image frame 0
         backbone_kernels(pred_img, images[0], rows)
+        stage_kernel(pred_img, images[0], rows)
 
     # 4. the heatmap serving path: counts to 0, frames, counts read back
-    outs, lat, launches = drive(pred, frames, K, kcn)
+    outs, lat, launches = drive(pred, frames, K)
     log(f"serving path: {FRAMES} frames, launches {launches}")
-    for name in ("whole_sample", "person_planes", "centernet", "soft_argmax",
-                 "weightnet_pool"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the path")
+    expect_launches(launches, HEATMAP_PATH, "heatmap path")
     steady = lat[WARMUP_FRAMES:]
     log_latency("frame latency", lat)
     profile_frames(pred, frames)
@@ -450,12 +496,9 @@ def main() -> int:
 
     # 5. the image serving path: counts to 0, frames, counts read back
     img_frames = [im[None] for im in images]
-    outs, lat, img_launches = drive(pred_img, img_frames, K, kcn)
+    outs, lat, img_launches = drive(pred_img, img_frames, K)
     log(f"image path: {FRAMES} frames, launches {img_launches}")
-    for name, c in img_launches.items():
-        if c <= 0:
-            raise AssertionError(f"{name} was not launched on the image "
-                                 "path")
+    expect_launches(img_launches, IMAGE_PATH, "image path")
     img_steady = lat[WARMUP_FRAMES:]
     log_latency("image frame latency", lat)
     profile_frames(pred_img, img_frames)
@@ -484,16 +527,42 @@ def main() -> int:
     cpu_img = Predictor.from_state_dict(cfg_img, state, rig, device="cpu")
     check_poses(outs[0], cpu_img, hm_img, "image path ")
 
+    # 6. the fuse_p2p serving path: counts to 0, frames, counts read back
+    outs, lat, fuse_launches = drive(pred_fuse, frames, K)
+    log(f"fuse_p2p path: {FRAMES} frames, launches {fuse_launches}")
+    expect_launches(fuse_launches, FUSE_PATH, "fuse_p2p path")
+    fuse_steady = lat[WARMUP_FRAMES:]
+    log_latency("fuse_p2p frame latency", lat)
+    profile_frames(pred_fuse, frames)
+    cpu_fuse = Predictor.from_state_dict(cfg_fuse, state, rig, device="cpu")
+    check_poses(outs[0], cpu_fuse, hm, "fuse_p2p path ", FUSE_POSE_TOL_MM)
+
+    # the bottleneck stage's entry point on the image frames' layer1 inputs
+    stage_launches = drive_stage(pred_img, img_frames, K)
+    log(f"bottleneck_stage entry point: {len(img_frames)} frames, launches "
+        f"{stage_launches}")
+    expect_launches(stage_launches, ("bottleneck_stage",), "stage entry point")
+
     kernels = []
+    paths = {"heatmap_path": launches, "image_path": img_launches,
+             "fuse_p2p_path": fuse_launches,
+             "bottleneck_stage_entry_point": stage_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
-                 "centernet", "soft_argmax", "weightnet_pool"):
+                 "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
+                 "c2cnet", "bottleneck_stage"):
         row = dict(rows[name])
-        row["launches"] = img_launches[name]
-        row["launches_heatmap_path"] = launches[name]
+        main = ("image_path" if name in IMAGE_PATH else "fuse_p2p_path"
+                if name in FUSE_PATH else "bottleneck_stage_entry_point")
+        row["launches"] = paths[main][name]
+        row["launches_from"] = main
+        for path, counts in paths.items():
+            row[f"launches_{path}"] = counts[name]
         kernels.append(row)
     log(json.dumps({"kernels": kernels,
                     "frame_ms_median": statistics.median(steady),
                     "image_frame_ms_median": statistics.median(img_steady),
+                    "fuse_p2p_frame_ms_median": statistics.median(
+                        fuse_steady),
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -568,6 +637,210 @@ def backbone_kernels(pred, images_np, rows) -> None:
         f"{head['library_ms']:.4f} bound_ms={head['bound_ms']:.4f}")
 
 
+class PairedOps:
+    """The ops of a bf16 net (ops/kernels/conv_bf16.py) run twice on the
+    same inputs, by the kernels and by their plain versions: keeps the worst
+    bf16 ulps (bf16_close) and the operation count, and passes the plain
+    output on, so that each launch is held against its plain version alone.
+    Its kernel counters are its own: these launches count on no path."""
+
+    def __init__(self):
+        from fvp_torch.ops.kernels import conv_bf16 as kcv
+
+        self.kernel = kcv.make_ops(kcv.conv_kernel("compare.conv"),
+                                   kcv.pool_kernel("compare.pool"))
+        self.plain = kcv.PLAIN
+        self.err = self.ulps = self.flops = 0.0
+        self.launches = 0
+
+    def _held(self, got, ref):
+        import torch
+
+        torch.cuda.synchronize()
+        err, ulps = bf16_close(got, ref)
+        self.err, self.ulps = max(self.err, err), max(self.ulps, ulps)
+        self.launches += 1
+        return ref
+
+    def conv(self, x, layer, res=None, relu=False, out_dtype=None):
+        import torch
+
+        out_dtype = out_dtype or torch.bfloat16
+        taps, cin, f = layer["w"].shape
+        self.flops += x.shape[0] * x.shape[1] * x.shape[2] * f * (
+            2.0 * taps * cin + 2 + (res is not None))
+        return self._held(
+            self.kernel.conv(x, layer, res, relu, out_dtype),
+            self.plain.conv(x, layer, res, relu, out_dtype))
+
+    def upconv(self, x, layer, skip):
+        cin, f = layer["w"].shape[2:]
+        self.flops += 4.0 * x.shape[0] * x.shape[1] * x.shape[2] * f * (
+            2.0 * cin + 4)
+        return self._held(self.kernel.upconv(x, layer, skip),
+                          self.plain.upconv(x, layer, skip))
+
+    def pool(self, x):
+        self.flops += 3.0 * x.numel() / 4
+        return self._held(self.kernel.pool(x), self.plain.pool(x))
+
+
+def c2c_flops(N: int, Z: int, J: int) -> float:
+    """Operations of C2CNet on N columns of height Z (2 per multiply-add,
+    2 per output for the affine)."""
+    from fvp_torch.ops.kernels.c2cnet import layer_shapes
+
+    level = {"encoder_res1": 2, "skip_res2": 2, "decoder_res1": 2,
+             "decoder_upsample1": 2, "encoder_res2": 4, "mid_res": 4,
+             "decoder_res2": 4, "decoder_upsample2": 4}
+    f = 0.0
+    for name, taps, cin, fo in layer_shapes(J):
+        z = Z // level.get(name.split(".")[0], 1)
+        f += z * fo * (2.0 * taps * cin + 2 * (taps if taps == 2 else 1))
+    return N * f
+
+
+def fuse_kernels(pred, hm, planes, rows) -> None:
+    """Phase 3 for the fuse_p2p kernels. P2PNet on K2's planes of frame 0
+    (30, 64, 64, 15): each of its 25 launches against its plain version on
+    the same input within one bf16 ulp, the whole net within NET_RTOL of
+    its scale. C2CNet, one launch, on frame 0's z-columns (10, 20, 15):
+    within NET_RTOL of its scale. Library yardstick: the port's cuDNN
+    module of the same net in bf16 (P2PNet channels-last)."""
+    import copy
+
+    import torch
+    from fvp_torch.ops.kernels import c2cnet as kc2c
+    from fvp_torch.ops.kernels import hourglass as khg
+
+    cl = torch.channels_last
+    pk = pred.packed["p2p_net"]
+    paired = PairedOps()
+    khg.run(pk, planes, paired)
+    got, ref = khg.p2pnet(pk, planes), khg.p2pnet_plain(pk, planes)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"p2pnet {tuple(planes.shape)}: {paired.launches} launches each "
+        f"within {paired.ulps:.3f} bf16 ulps of the plain op (max_abs_err "
+        f"{paired.err:.3e}); whole net max_abs_err {err:.3e}, scale "
+        f"{scale:.3e} (tol {NET_RTOL} x scale)")
+    if not (paired.ulps <= 1.0 and err <= NET_RTOL * scale and scale > 0):
+        raise AssertionError("p2pnet disagrees with its plain version")
+    net16 = copy.deepcopy(pred.model.joint_net.conv_net).to(
+        torch.bfloat16).to(memory_format=cl)
+    p16 = planes.to(torch.bfloat16)
+    rows["p2pnet"] = {
+        "name": "p2pnet", "route": "cuda",
+        "source": "fvp_torch/csrc/conv_bf16.cu",
+        "replaces": "fvp_tpu/ops/pallas/hourglass.py:614",
+        **bf16_row("p2pnet", err, paired.ulps,
+                   time_ms(lambda: khg.p2pnet(pk, planes)),
+                   time_ms(lambda: khg.p2pnet_plain(pk, planes)),
+                   time_ms(lambda: net16(p16)),
+                   bound(nbytes(planes, got, *_leaves(pk)), paired.flops,
+                         PEAK_BF16)),
+        "host_enqueue_ms": host_ms(lambda: khg.p2pnet(pk, planes))}
+
+    pc = pred.packed["c2c_net"]
+    cols = pred.model.detect(hm, pred.rc, pred.packed)["columns"]
+    got, ref = kc2c.c2cnet(pc, cols), kc2c.c2cnet_plain(pc, cols)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    _, ulps = bf16_close(got, ref)
+    log(f"c2cnet {tuple(cols.shape)}: max_abs_err {err:.3e}, scale "
+        f"{scale:.3e} (tol {NET_RTOL} x scale), {ulps:.3f} bf16 ulps")
+    if not (err <= NET_RTOL * scale and scale > 0):
+        raise AssertionError("c2cnet disagrees with its plain version")
+    c2c16 = copy.deepcopy(pred.model.pose_net.c2c_net).to(torch.bfloat16)
+    c16 = cols.to(torch.bfloat16)
+    rows["c2cnet"] = {
+        "name": "c2cnet", "route": "cuda",
+        "source": "fvp_torch/csrc/c2cnet.cu",
+        "replaces": "fvp_tpu/ops/pallas/hourglass.py:565",
+        "max_abs_err": err, "max_ulps": ulps,
+        "ms": time_ms(lambda: kc2c.c2cnet(pc, cols)),
+        "plain_ms": time_ms(lambda: kc2c.c2cnet_plain(pc, cols)),
+        "library_ms": time_ms(lambda: c2c16(c16)),
+        "host_enqueue_ms": host_ms(lambda: kc2c.c2cnet(pc, cols))}
+    b = bound(nbytes(cols, got, pc["w_flat"], pc["aff_flat"]),
+              c2c_flops(*cols.shape), PEAK_BF16)
+    rows["c2cnet"].update(bound_ms=b[0], bound_by=b[1])
+    for name in ("p2pnet", "c2cnet"):
+        log(f"{name}: host time to enqueue one call "
+            f"{rows[name]['host_enqueue_ms']:.4f} ms")
+    log(f"c2cnet: kernel_ms={rows['c2cnet']['ms']:.4f} plain_ms="
+        f"{rows['c2cnet']['plain_ms']:.4f} library_ms="
+        f"{rows['c2cnet']['library_ms']:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+
+
+def stage_weights(pred):
+    """The bottleneck stage's packed weights and (cmid, down) per block:
+    the predictor's ResNet-50 layer1."""
+    from fvp_torch.engine.packing import pack_bottleneck_stage
+
+    layer1 = pred.backbone.layer1
+    cfg = tuple((blk.conv1.out_channels, blk.downsample is not None)
+                for blk in layer1)
+    return pack_bottleneck_stage(layer1), cfg
+
+
+def stage_kernel(pred, images_np, rows) -> None:
+    """Phase 3 for the bottleneck stage, on the seeded ResNet-50's layer1
+    input of image frame 0 (the stem's output, (5, 128, 240, 64) bf16):
+    each of its 10 launches within one bf16 ulp of the plain op on the same
+    input, the stage within NET_RTOL of its scale. Library yardstick:
+    cuDNN's bf16 layer1, channels-last; beside it the port's float32 layer1
+    (its trunk, TF32 off)."""
+    import copy
+
+    import torch
+    from fvp_torch.ops.kernels import stem as kst
+    from fvp_torch.ops.kernels import trunk as ktr
+
+    packed, cfg = stage_weights(pred)
+    x = kst.stem(torch.as_tensor(images_np, device=pred.device),
+                 pred.backbone_packed["stem"])
+    paired = PairedOps()
+    ktr.run(x, packed, cfg, paired)
+    got = ktr.bottleneck_stage(x, packed, cfg)
+    ref = ktr.bottleneck_stage_plain(x, packed, cfg)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    log(f"bottleneck_stage {tuple(x.shape)}: {paired.launches} launches "
+        f"each within {paired.ulps:.3f} bf16 ulps of the plain op; stage "
+        f"max_abs_err {err:.3e}, scale {scale:.3e} (tol {NET_RTOL} x "
+        "scale)")
+    if not (paired.ulps <= 1.0 and err <= NET_RTOL * scale and scale > 0):
+        raise AssertionError("bottleneck_stage disagrees with its plain "
+                             "version")
+    cl = torch.channels_last
+    l16 = copy.deepcopy(pred.backbone.layer1).to(torch.bfloat16).to(
+        memory_format=cl)
+    x16 = x.permute(0, 3, 1, 2)                      # channels-last NCHW
+    x32 = x.float().permute(0, 3, 1, 2)
+    f32_ms = time_ms(lambda: pred.backbone.layer1(x32))
+    rows["bottleneck_stage"] = {
+        "name": "bottleneck_stage", "route": "cuda",
+        "source": "fvp_torch/csrc/conv_bf16.cu",
+        "replaces": "fvp_tpu/ops/pallas/trunk.py:175",
+        **bf16_row("bottleneck_stage", err, paired.ulps,
+                   time_ms(lambda: ktr.bottleneck_stage(x, packed, cfg)),
+                   time_ms(lambda: ktr.bottleneck_stage_plain(x, packed,
+                                                              cfg)),
+                   time_ms(lambda: l16(x16)),
+                   bound(nbytes(x, got, *_leaves(packed)), paired.flops,
+                         PEAK_BF16)),
+        "float32_layer1_ms": f32_ms,
+        "host_enqueue_ms": host_ms(lambda: ktr.bottleneck_stage(x, packed,
+                                                                cfg))}
+    log(f"  the port's float32 layer1 (cuDNN, TF32 off): {f32_ms:.4f} ms; "
+        "host time to enqueue one call of the stage "
+        f"{rows['bottleneck_stage']['host_enqueue_ms']:.4f} ms")
+
+
 def bf16_row(name, err, ulps, ms, plain_ms, lib_ms, bnd) -> dict:
     """Log and check one bf16 kernel's comparison; its measurements."""
     log(f"{name}: max_abs_err={err:.3e} max_ulps={ulps:.3f} (tol 1 bf16 "
@@ -628,7 +901,36 @@ def image_breakdown(pred, frame) -> None:
         f"NCHW (a yardstick, not the port's path): {nchw:.3f} ms")
 
 
-def drive(pred, frames, K, kcn):
+# the kernels each path must launch (and no others)
+HEATMAP_PATH = ("whole_sample", "person_planes", "centernet", "soft_argmax",
+                "weightnet_pool")
+IMAGE_PATH = ("stem", "deconv_stage") + HEATMAP_PATH
+FUSE_PATH = HEATMAP_PATH + ("p2pnet", "c2cnet")
+
+
+def launch_counts(K) -> dict:
+    """Launches per kernel of the JSON line: the wrappers' counters, with
+    CenterNet's and P2PNet's layer kernels summed."""
+    c = {k.name: k.launches for k in K.all_kernels().values()}
+    return {"stem": c["stem"], "deconv_stage": c["deconv_stage"],
+            "whole_sample": c["whole_sample"],
+            "person_planes": c["person_planes"],
+            "centernet": c["centernet.conv"] + c["centernet.pool"]
+            + c["centernet.upconv"],
+            "soft_argmax": c["soft_argmax"],
+            "weightnet_pool": c["weightnet_pool"],
+            "p2pnet": c["p2pnet.conv"] + c["p2pnet.pool"],
+            "c2cnet": c["c2cnet"], "bottleneck_stage": c["bottleneck_stage"]}
+
+
+def expect_launches(counts, names, what) -> None:
+    """Every kernel of `names` ran on the path, and no other kernel did."""
+    for name, c in counts.items():
+        if (c > 0) != (name in names):
+            raise AssertionError(f"{what}: {name} launched {c} times")
+
+
+def drive(pred, frames, K):
     """Every launch count to 0, FRAMES frames through `pred`, the counts
     read back. Returns (outputs, host-clock ms per frame, launches)."""
     import torch
@@ -642,13 +944,32 @@ def drive(pred, frames, K, kcn):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
         outs.append(out)
-    counts = {k.name: k.launches for k in K.all_kernels().values()}
-    launches = {name: counts[name] for name in (
-        "stem", "deconv_stage", "whole_sample", "person_planes")}
-    launches["centernet"] = kcn.launches()
-    for name in ("soft_argmax", "weightnet_pool"):
-        launches[name] = counts[name]
-    return outs, lat, launches
+    return outs, lat, launch_counts(K)
+
+
+def drive_stage(pred, frames, K) -> dict:
+    """The bottleneck stage's entry point on the layer1 input (the stem's
+    output) of each image frame, counts at 0 just before; checks each
+    output against the stage's plain version within NET_RTOL."""
+    import torch
+    from fvp_torch.ops.kernels import stem as kst
+    from fvp_torch.ops.kernels import trunk as ktr
+
+    packed, cfg = stage_weights(pred)
+    with torch.inference_mode():
+        inputs = [kst.stem(torch.as_tensor(f[0], device=pred.device),
+                           pred.backbone_packed["stem"]) for f in frames]
+        K.reset_launches()
+        outs = [ktr.bottleneck_stage(x, packed, cfg) for x in inputs]
+        torch.cuda.synchronize()
+        counts = launch_counts(K)
+        for x, got in zip(inputs, outs):
+            ref = ktr.bottleneck_stage_plain(x, packed, cfg).float()
+            err = float((got.float() - ref).abs().max())
+            if not err <= NET_RTOL * float(ref.abs().max()):
+                raise AssertionError(f"bottleneck_stage: {err} off its plain "
+                                     "version")
+    return counts
 
 
 def log_latency(what, lat) -> None:
@@ -659,10 +980,10 @@ def log_latency(what, lat) -> None:
         f"{', '.join(f'{x:.1f}' for x in lat[:WARMUP_FRAMES])} ms)")
 
 
-def check_poses(out, cpu, hm, label) -> None:
+def check_poses(out, cpu, hm, label, tol_mm: float = 5e-2) -> None:
     """The card's output `out` of a frame whose heatmaps are `hm` against
     the CPU predictor `cpu` on the same heatmaps: a non-vacuous gate clear
-    of min_score, identical masks, fused poses within 5e-2 mm."""
+    of min_score, identical masks, fused poses within `tol_mm`."""
     import torch
 
     ref = cpu(hm.cpu())
@@ -686,8 +1007,8 @@ def check_poses(out, cpu, hm, label) -> None:
             raise AssertionError(f"{k}: shape {tuple(a.shape)} or non-finite")
     err = float((got["fused_poses"] - ref["fused_poses"]).abs().max())
     log(f"{label}fused_poses {tuple(got['fused_poses'].shape)}: card vs CPU "
-        f"max_abs_err {err:.3e} mm (tol 5e-2 mm)")
-    if not err <= 5e-2:
+        f"max_abs_err {err:.3e} mm (tol {tol_mm:.0e} mm)")
+    if not err <= tol_mm:
         raise AssertionError("fused_poses differ between card and CPU")
 
 
@@ -731,8 +1052,8 @@ def profile_frames(pred, frames, n: int = 3) -> None:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     elif tree is not None:
         yield tree

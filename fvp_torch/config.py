@@ -40,7 +40,7 @@ class FVPConfig:
     """All static hyper-parameters of the pipeline (frozen, hashable).
     Fields and defaults equal the reference package's FVPConfig; fields
     that only steer the TPU build (band heights, backbone lowering modes,
-    fuse_p2p, sampling_backend) are kept so one YAML file serves both."""
+    sampling_backend) are kept so one YAML file serves both."""
 
     # --- dataset geometry ------------------------------------------------
     num_joints: int = 15
@@ -78,7 +78,8 @@ class FVPConfig:
     # backbone lowering modes of the reference package (not read here)
     backbone_stem: str = "xla"     # xla | s2d | host_s2d (Pallas, s2d feed)
     backbone_head: str = "xla"     # xla | fused | polyphase | pallas
-    # the reference package's fused P2PNet switch (not read here)
+    # run C2CNet and P2PNet as the bf16 kernels of the reference's fused
+    # nets (ops/kernels/c2cnet.py, hourglass.py) instead of cuDNN modules
     fuse_p2p: bool = False
 
     # --- training --------------------------------------------------------

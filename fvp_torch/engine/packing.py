@@ -8,15 +8,28 @@ kernels: (k, k, Cin, Cout) for a conv, (2, 2, Cin, Cout) for a transposed
 conv, (9, C) for WeightNet's single-input-channel conv. The backbone's
 stem and deconv-head weights are packed in bf16, the type their kernels
 read (`pack_backbone`).
+
+The bf16 kernels of the `fuse_p2p` path and of the bottleneck stage read
+their layers as {"w": (k*k, Cin, F) bf16 (taps in row-major order; (2, 2,
+Cin, F) or (2, Cin, F) for an up-conv, w[r, s] the tap of output
+(2i + r, 2j + s)), "aff": (2, F) float32 (scale, shift)}, BN folded in
+float32 at eps 1e-5, an up-conv's bias kept in its shift: `pack_p2pnet`
+(P2PNet, with its 1x1 output conv's bias in float32), `pack_c2cnet` (C2CNet,
+every layer a view into two flat buffers that its one-launch kernel walks)
+and `pack_bottleneck_stage` (a ResNet layer of stride-1 Bottlenecks). They
+equal the reference package's `pack_p2pnet`, `pack_c2cnet` and
+`pack_bottleneck_stage` (fvp_tpu/ops/pallas/hourglass.py, trunk.py) up to
+these layouts.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from fvp_torch.models.blocks import ResBlock, UpsampleBlock
-from fvp_torch.models.cnns import CenterNet, WeightNet
+from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
 from fvp_torch.ops.kernels.deconv_head import pack_deconv_weight
 
 _ENC = ("skip_res1", "encoder_res1", "skip_res2", "encoder_res2", "mid_res",
@@ -98,8 +111,132 @@ def pack_backbone(model) -> dict:
     return {"stem": stem, "head": head}
 
 
+def _fold(bias: torch.Tensor | None, bn: nn.Module | None) -> torch.Tensor:
+    """(2, F) float32 (a, a * conv_bias + beta - mean * a), a = gamma /
+    sqrt(var + 1e-5); (1, conv_bias) without a BN. Each step is one
+    correctly rounded float32 operation, in numpy (torch's vectorised CPU
+    division and square root may differ from it by an ulp), as the
+    reference package folds."""
+    def f32(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    if bn is None:
+        b = f32(bias)
+        aff = np.stack([np.ones_like(b), b])
+    else:
+        a = f32(bn.weight) / np.sqrt(f32(bn.running_var) + np.float32(1e-5))
+        b = f32(bn.bias) - f32(bn.running_mean) * a
+        if bias is not None:
+            b = a * f32(bias) + b
+        aff = np.stack([a, b])
+    device = (bias if bias is not None else bn.weight).device
+    return torch.from_numpy(aff).to(device)
+
+
+def _layer_bf16(conv: nn.Module, bn: nn.Module | None = None) -> dict:
+    """A Conv1d/Conv2d (+ BN) as the bf16 kernels read it: w (k*k, Cin, F),
+    the reference's (kh, kw, Cin, F) kernel with its taps flattened."""
+    w = conv.weight.detach()
+    w = w.permute(*range(2, w.dim()), 1, 0)          # (k..., Cin, F)
+    return {"w": w.reshape(-1, *w.shape[-2:]).to(torch.bfloat16)
+            .contiguous(), "aff": _fold(conv.bias, bn).contiguous()}
+
+
+def _upsample_bf16(up: UpsampleBlock) -> dict:
+    """A ConvTranspose (k = 2, s = 2) + BN: w[r(, s)] = weight[:, :, r(, s)],
+    the reference's flipped flax kernel kf[1-r(, 1-s)]; its bias folded."""
+    conv, bn = up.block[0], up.block[1]
+    w = conv.weight.detach()                          # (Cin, F, 2(, 2))
+    w = w.permute(*range(2, w.dim()), 0, 1)
+    return {"w": w.to(torch.bfloat16).contiguous(),
+            "aff": _fold(conv.bias, bn).contiguous()}
+
+
+def _res_bf16(res: ResBlock) -> dict:
+    rb, sk = res.res_branch, res.skip_con
+    return {"c0": _layer_bf16(rb[0], rb[1]), "c1": _layer_bf16(rb[3], rb[4]),
+            "proj": _layer_bf16(sk[0], sk[1]) if len(sk) else None}
+
+
+def _hourglass_bf16(net) -> dict:
+    """BasicBlock front + ResBlock + EncoderDecoder of P2PNet or C2CNet."""
+    front = net.front_layers[0].block
+    enc = net.encoder_decoder
+    packed = {"front": _layer_bf16(front[0], front[1]),
+              "res0": _res_bf16(net.front_layers[1]),
+              "enc": {name: _res_bf16(getattr(enc, name)) for name in _ENC}}
+    for name in ("decoder_upsample2", "decoder_upsample1"):
+        packed["enc"][name] = _upsample_bf16(getattr(enc, name))
+    return packed
+
+
+def hourglass_layers(packed: dict) -> list:
+    """The layers of a packed hourglass in the order of the reference's
+    packers and of the C2CNet kernel: front, ResBlocks (c0, c1, proj),
+    the up-convs between them."""
+    def res(r):
+        return [r["c0"], r["c1"]] + ([r["proj"]] if r["proj"] else [])
+
+    e = packed["enc"]
+    out = [packed["front"]] + res(packed["res0"])
+    for name in _ENC[:-1]:
+        out += res(e[name])
+    return out + [e["decoder_upsample2"]] + res(e["decoder_res1"]) \
+        + [e["decoder_upsample1"]]
+
+
+@torch.no_grad()
+def pack_p2pnet(net: P2PNet) -> dict:
+    """P2PNet for ops/kernels/hourglass.py: the hourglass layers and
+    "final", the 1x1 output conv with (1, bias) as its affine."""
+    packed = _hourglass_bf16(net)
+    packed["final"] = _layer_bf16(net.output_layer)
+    return packed
+
+
+@torch.no_grad()
+def pack_c2cnet(net: C2CNet) -> dict:
+    """C2CNet for ops/kernels/c2cnet.py: the layers as in pack_p2pnet, each
+    a view into "w_flat" (bf16) and "aff_flat" (float32), in the order of
+    c2cnet.layer_shapes."""
+    packed = _hourglass_bf16(net)
+    packed["final"] = _layer_bf16(net.output_hm)
+    layers = hourglass_layers(packed) + [packed["final"]]
+    for key, flat_key in (("w", "w_flat"), ("aff", "aff_flat")):
+        flat = torch.cat([lay[key].reshape(-1) for lay in layers])
+        offset = 0
+        for lay in layers:
+            n = lay[key].numel()
+            lay[key] = flat[offset:offset + n].view(lay[key].shape)
+            offset += n
+        packed[flat_key] = flat
+    return packed
+
+
+@torch.no_grad()
+def pack_bottleneck_stage(layer: nn.Sequential) -> list:
+    """A ResNet layer of stride-1 Bottlenecks (models/resnet.py) for
+    ops/kernels/trunk.py: per block {"c1", "c2", "c3", "down" (or None)}."""
+    out = []
+    for blk in layer:
+        if blk.conv2.stride != (1, 1):
+            raise ValueError("pack_bottleneck_stage: stride-1 blocks only")
+        down = blk.downsample
+        out.append({"c1": _layer_bf16(blk.conv1, blk.bn1),
+                    "c2": _layer_bf16(blk.conv2, blk.bn2),
+                    "c3": _layer_bf16(blk.conv3, blk.bn3),
+                    "down": None if down is None
+                    else _layer_bf16(down[0], down[1])})
+    return out
+
+
 def pack_model(model) -> dict:
     """Packed kernel weights of a FasterVoxelPose, on the model's device.
-    They are detached from the parameters (no autograd)."""
-    return {"center_net": pack_centernet(model.pose_net.center_net),
-            "weight_net": pack_weightnet(model.joint_net.weight_net)}
+    They are detached from the parameters (no autograd). P2PNet and C2CNet
+    are packed only for the `fuse_p2p` path, which runs them as kernels."""
+    packed = {"center_net": pack_centernet(model.pose_net.center_net),
+              "weight_net": pack_weightnet(model.joint_net.weight_net)}
+    if model.cfg.fuse_p2p:
+        packed["p2p_net"] = pack_p2pnet(model.joint_net.conv_net)
+        packed["c2c_net"] = pack_c2cnet(model.pose_net.c2c_net)
+    return packed

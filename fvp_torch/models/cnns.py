@@ -13,8 +13,12 @@ two packages compare like with like:
 On the serving path CenterNet runs as the hand-written kernel sequence of
 `ops/kernels/centernet.py`, and WeightNet's conv front end as the kernel of
 `ops/kernels/weightnet.py`; both read these modules' weights through
-`engine/packing.py`. C2CNet and P2PNet stay cuDNN convs, as the reference
-package's serving path leaves them to XLA.
+`engine/packing.py`. C2CNet and P2PNet run as these cuDNN modules by
+default, as the reference package's default serving path leaves them to
+XLA; with `cfg.fuse_p2p` the serving path runs them as bf16 kernels
+instead (`ops/kernels/c2cnet.py`, one launch, and
+`ops/kernels/hourglass.py`, layer by layer), on weights packed from these
+modules.
 """
 
 from __future__ import annotations

@@ -10,6 +10,14 @@ Data flow (the reference package's FasterVoxelPose, non-train branch):
     -> P2PNet -> soft-argmax [K4] -> WeightNet [K5 + MLP] fusion
     -> fused poses (B, K, J, 5) [xyz mm, match, score]
 
+C2CNet and P2PNet are cuDNN modules by default. With `cfg.fuse_p2p` they
+run as the bf16 kernels of the reference's fused nets, as the reference
+routes them (fvp_tpu/models/faster_voxelpose.py:204, :332): C2CNet when
+the z axis is a multiple of 4 (`ops/kernels/c2cnet.py`), P2PNet when
+`hourglass_supported` accepts the plane shape (`ops/kernels/hourglass.py`).
+The reference also asks for its Pallas samplers there; the port always
+samples in its kernels, so that condition has no counterpart.
+
 Submodules carry the reference model's key names (`pose_net.center_net`,
 `pose_net.c2c_net`, `joint_net.conv_net`, `joint_net.weight_net`). The
 kernel wrappers pick the kernel for CUDA tensors and the plain version for
@@ -25,7 +33,9 @@ from torch import nn
 from fvp_torch.config import FVPConfig
 from fvp_torch.geometry.grids import RigConstants
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
+from fvp_torch.ops.kernels.c2cnet import c2cnet
 from fvp_torch.ops.kernels.centernet import centernet_forward
+from fvp_torch.ops.kernels.hourglass import hourglass_supported, p2pnet
 from fvp_torch.ops.kernels.sampler import person_planes, whole_sample
 from fvp_torch.ops.kernels.softargmax import soft_argmax
 from fvp_torch.ops.kernels.weightnet import weightnet_pool
@@ -57,7 +67,8 @@ class FasterVoxelPose(nn.Module):
 
     # ------------------------------------------------------------------
     def detect(self, heatmaps, rc: RigConstants, packed: dict) -> dict:
-        """HDN: heatmaps -> proposals (B, K, 7) and the raw maps."""
+        """HDN: heatmaps -> proposals (B, K, 7), the raw maps and C2CNet's
+        input, the proposals' z-columns (B*K, Z, J)."""
         cfg = self.cfg
         B = heatmaps.shape[0]
         K = cfg.max_people
@@ -75,8 +86,12 @@ class FasterVoxelPose(nn.Module):
         vol_flat = volumes.reshape(B, nx * ny, nz, J)
         columns = torch.gather(
             vol_flat, 1, flat[:, :, None, None].expand(B, K, nz, J))
-        hm1d = self.pose_net.c2c_net(
-            columns.reshape(B * K, nz, J)).reshape(B, K, nz)
+        columns = columns.reshape(B * K, nz, J)
+        if cfg.fuse_p2p and nz % 4 == 0:
+            hm1d = c2cnet(packed["c2c_net"], columns)
+        else:
+            hm1d = self.pose_net.c2c_net(columns)
+        hm1d = hm1d.reshape(B, K, nz)
 
         z_idx = torch.argmax(hm1d, dim=2)                    # (B, K)
         confs1d = hm1d.amax(dim=2)
@@ -90,7 +105,7 @@ class FasterVoxelPose(nn.Module):
         proposals = torch.cat([centers_mm, proposal2gt[:, :, None],
                                confs[:, :, None], match_bbox], dim=2)
         return {"proposals": proposals, "hm2d": hm2d[..., 0], "hm1d": hm1d,
-                "bbox_flat": bbox_flat}
+                "bbox_flat": bbox_flat, "columns": columns}
 
     # ------------------------------------------------------------------
     def localize(self, heatmaps, rc: RigConstants, proposals, packed: dict):
@@ -105,7 +120,11 @@ class FasterVoxelPose(nn.Module):
         planes, offsets = person_planes(
             heatmaps, rc, cfg, proposals[..., 0:3], proposals[..., 5:7],
             person_mask)                                     # (3, BK, n, n, J)
-        feats = self.joint_net.conv_net(planes.reshape(3 * B * K, n, n, J))
+        flat = planes.reshape(3 * B * K, n, n, J)
+        if cfg.fuse_p2p and hourglass_supported(flat.shape):
+            feats = p2pnet(packed["p2p_net"], flat)
+        else:
+            feats = self.joint_net.conv_net(flat)
         coords, confs = soft_argmax(feats.reshape(3, B * K, n * n, J),
                                     rc.center_grid, cfg.beta)
         off = offsets.reshape(B * K, 1, 3)

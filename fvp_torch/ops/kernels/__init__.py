@@ -53,12 +53,14 @@ def check(t: torch.Tensor, name: str, shape=None,
 
 
 def all_kernels() -> dict[str, Kernel]:
-    """name -> Kernel for the kernels of the serving path."""
-    from fvp_torch.ops.kernels import centernet, deconv_head, sampler
-    from fvp_torch.ops.kernels import softargmax, stem, weightnet
+    """name -> Kernel for every kernel entry point of the port."""
+    from fvp_torch.ops.kernels import c2cnet, centernet, deconv_head
+    from fvp_torch.ops.kernels import hourglass, sampler, softargmax, stem
+    from fvp_torch.ops.kernels import trunk, weightnet
     ks = [stem.STEM, deconv_head.DECONV, sampler.WHOLE_SAMPLE,
           sampler.PERSON_PLANES, centernet.CONV, centernet.POOL,
-          centernet.UPCONV, softargmax.SOFT_ARGMAX, weightnet.WEIGHTNET_POOL]
+          centernet.UPCONV, softargmax.SOFT_ARGMAX, weightnet.WEIGHTNET_POOL,
+          hourglass.CONV, hourglass.POOL, c2cnet.C2C, trunk.CONV]
     return {k.name: k for k in ks}
 
 

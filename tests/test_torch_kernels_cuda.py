@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach: 17 joints, 16- and 32-voxel cubes,
 dead and unmatched persons, batches of two, odd pyramid widths, ragged
-stem and deconv tiles, a 2048-channel deconv input.
+stem and deconv tiles, a 2048-channel deconv input; for the bf16 conv
+kernel every op and width of P2PNet and the bottleneck stage at ragged
+tiles, C2CNet at Z = 8 and 12 and column counts that are no multiple of 8,
+and the `fuse_p2p` path.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -22,8 +25,13 @@ from fvp_torch.engine.serve import Predictor
 from fvp_torch.geometry.cameras import default_ring_rig
 from fvp_torch.geometry.grids import build_rig_constants
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+from fvp_torch.engine.packing import pack_bottleneck_stage
 from fvp_torch.ops.kernels import all_kernels, reset_launches
+from fvp_torch.ops.kernels import c2cnet as kc2c
 from fvp_torch.ops.kernels import centernet as kcn
+from fvp_torch.ops.kernels import conv_bf16 as kcv
+from fvp_torch.ops.kernels import hourglass as khg
+from fvp_torch.ops.kernels import trunk as ktr
 from fvp_torch.ops.kernels import deconv_head as kdh
 from fvp_torch.ops.kernels import sampler as ksamp
 from fvp_torch.ops.kernels import softargmax as ksa
@@ -209,6 +217,12 @@ def test_wrappers_reject_bad_cuda_input(dev):
                           "aff": torch.zeros((2, 96), device=dev)})
 
 
+# kernels the default heatmap path does not launch: the backbone's, the
+# fuse_p2p path's and the bottleneck stage (on no model path)
+_FUSE_ONLY = ("p2pnet.conv", "p2pnet.pool", "c2cnet")
+_OFF_HEATMAP_PATH = ("stem", "deconv_stage", "bottleneck_stage") + _FUSE_ONLY
+
+
 def test_predictor_cuda_matches_cpu(dev):
     """The whole slice on the card through every kernel, against the same
     Predictor on the CPU (the plain path)."""
@@ -224,9 +238,9 @@ def test_predictor_cuda_matches_cpu(dev):
     reset_launches()
     got = pred(hm)
     counts = {n: k.launches for n, k in all_kernels().items()}
-    backbone = {n: counts.pop(n) for n in ("stem", "deconv_stage")}
+    off = {n: counts.pop(n) for n in _OFF_HEATMAP_PATH}
     assert all(c > 0 for c in counts.values()), counts
-    assert all(c == 0 for c in backbone.values()), backbone
+    assert all(c == 0 for c in off.values()), off
     ref = Predictor.from_state_dict(cfg, state, rig, device="cpu")(hm)
     assert int(ref["mask"].sum()) >= 2
     with torch.inference_mode():
@@ -262,7 +276,9 @@ def test_image_predictor_cuda_matches_cpu(dev):
     reset_launches()
     got = pred(images)
     counts = {n: k.launches for n, k in all_kernels().items()}
+    off = {n: counts.pop(n) for n in _FUSE_ONLY + ("bottleneck_stage",)}
     assert all(c > 0 for c in counts.values()), counts
+    assert all(c == 0 for c in off.values()), off
     cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu",
                                     backbone_state_dict=bb)
     hm = pred.heatmaps(images)
@@ -274,3 +290,151 @@ def test_image_predictor_cuda_matches_cpu(dev):
     assert bool(ref["mask"].all())
     torch.testing.assert_close(got["fused_poses"].cpu(), ref["fused_poses"],
                                rtol=1e-5, atol=5e-2)
+
+
+def _bf16_layer(rng, taps, cin, f, dev, up=False):
+    shape = (2, 2, cin, f) if up else (taps, cin, f)
+    w = rng.randn(*shape).astype(np.float32) / np.sqrt(taps * cin)
+    return {"w": torch.as_tensor(w, device=dev).to(torch.bfloat16),
+            "aff": _bn_aff(rng, f, dev)}
+
+
+@pytest.mark.parametrize("N,H,W,cin,f,taps,xdt,res,out", [
+    (3, 64, 64, 15, 16, 49, torch.float32, None, torch.bfloat16),  # front
+    (2, 17, 23, 16, 32, 9, torch.bfloat16, None, torch.bfloat16),
+    (2, 17, 23, 16, 32, 1, torch.bfloat16, None, torch.float32),   # proj
+    (1, 33, 30, 32, 32, 9, torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),                                              # join
+    (2, 9, 11, 64, 128, 9, torch.bfloat16, torch.float32,
+     torch.bfloat16),
+    (1, 20, 37, 32, 15, 1, torch.bfloat16, None, torch.float32),   # output
+    (1, 19, 37, 256, 64, 1, torch.bfloat16, None, torch.bfloat16),
+    (1, 19, 37, 64, 256, 1, torch.bfloat16, torch.bfloat16,
+     torch.bfloat16),                                              # conv3
+    (1, 8, 8, 24, 40, 9, torch.bfloat16, None, torch.bfloat16),    # odd C
+])
+def test_conv_bf16_kernel(dev, N, H, W, cin, f, taps, xdt, res, out):
+    """Every conv of P2PNet and the bottleneck stage, at ragged M tiles:
+    one bf16 ulp (float32 outputs: their float32 sums in another order)."""
+    rng = np.random.RandomState(H * W + f)
+    x = torch.as_tensor(rng.randn(N, H, W, cin).astype(np.float32),
+                        device=dev).to(xdt)
+    layer = _bf16_layer(rng, taps, cin, f, dev)
+    r = None if res is None else torch.as_tensor(
+        rng.randn(N, H, W, f).astype(np.float32), device=dev).to(res)
+    ops = kcv.make_ops(kcv.conv_kernel("test.conv"))
+    for relu in (False, True):
+        got = ops.conv(x, layer, res=r, relu=relu, out_dtype=out)
+        ref = kcv.conv_plain(x, layer, res=r, relu=relu, out_dtype=out)
+        assert got.dtype == ref.dtype == out
+        if out == torch.float32:
+            scale = float(ref.abs().max())
+            torch.testing.assert_close(got, ref, rtol=1e-5,
+                                       atol=1e-5 * scale)
+        else:
+            _assert_within_one_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("N,H,W,cin,f", [(3, 8, 8, 128, 64),
+                                         (2, 9, 13, 64, 32),
+                                         (1, 5, 7, 24, 16)])
+def test_upconv_and_pool_bf16_kernels(dev, N, H, W, cin, f):
+    rng = np.random.RandomState(cin + W)
+    x = torch.as_tensor(rng.randn(N, H, W, cin).astype(np.float32),
+                        device=dev).to(torch.bfloat16)
+    layer = _bf16_layer(rng, 1, cin, f, dev, up=True)
+    skip = torch.as_tensor(rng.randn(N, 2 * H, 2 * W, f).astype(np.float32),
+                           device=dev).to(torch.bfloat16)
+    ops = kcv.make_ops(kcv.conv_kernel("test.conv"),
+                       kcv.pool_kernel("test.pool"))
+    _assert_within_one_bf16_ulp(ops.upconv(x, layer, skip),
+                                kcv.upconv_plain(x, layer, skip))
+    x2 = x[:, :H // 2 * 2, :W // 2 * 2].contiguous()
+    assert torch.equal(ops.pool(x2), kcv.pool_plain(x2))
+
+
+def _fuse_model(J, dev, n=32):
+    from chip_smoke import random_state_dict
+
+    model = FasterVoxelPose(_cfg(J, n, fuse_p2p=True))
+    model.load_state_dict(random_state_dict(model, seed=J))
+    return model.to(dev).eval()
+
+
+@pytest.mark.parametrize("shape", [(3, 36, 44, 15), (2, 64, 64, 17)])
+def test_p2pnet_kernel(dev, shape):
+    """The whole net: bf16 flips in early layers carry on, so it is held at
+    1e-2 of the output's scale (as against the reference on the CPU); each
+    layer alone is held at one ulp above."""
+    packed = pack_model(_fuse_model(shape[-1], dev))["p2p_net"]
+    planes = torch.rand(shape, device=dev)
+    before = khg.launches()
+    got = khg.p2pnet(packed, planes)
+    assert khg.launches() == before + 25
+    ref = khg.p2pnet_plain(packed, planes)
+    scale = float(ref.abs().max())
+    assert scale > 0 and got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * scale)
+
+
+@pytest.mark.parametrize("N,Z,J", [(13, 8, 15), (7, 12, 17), (10, 20, 15)])
+def test_c2cnet_kernel(dev, N, Z, J):
+    packed = pack_model(_fuse_model(J, dev))["c2c_net"]
+    cols = torch.rand((N, Z, J), device=dev)
+    before = kc2c.C2C.launches
+    got = kc2c.c2cnet(packed, cols)
+    assert kc2c.C2C.launches == before + 1
+    ref = kc2c.c2cnet_plain(packed, cols)
+    scale = float(ref.abs().max())
+    assert scale > 0 and got.shape == ref.shape == (N, Z)
+    torch.testing.assert_close(got, ref, rtol=0, atol=5e-3 * scale)
+
+
+@pytest.mark.parametrize("V,H,W,blocks,cmid,cin", [(2, 19, 37, 3, 16, 32),
+                                                   (1, 16, 24, 2, 64, 64)])
+def test_bottleneck_stage_kernel(dev, V, H, W, blocks, cmid, cin):
+    from fvp_torch.models.resnet import Bottleneck, _down
+
+    torch.manual_seed(V * H)
+    mods = []
+    for i in range(blocks):
+        c = cin if i == 0 else 4 * cmid
+        mods.append(Bottleneck(c, cmid, 1, _down(c, 4 * cmid, 1)
+                               if i == 0 and c != 4 * cmid else None))
+    stage = torch.nn.Sequential(*mods).eval()
+    for m in stage.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            torch.nn.init.uniform_(m.weight, 0.5, 1.0)
+            torch.nn.init.normal_(m.running_mean, 0, 0.05)
+    packed = pack_bottleneck_stage(stage.to(dev))
+    cfg = tuple((cmid, stage[i].downsample is not None)
+                for i in range(blocks))
+    x = torch.randn((V, H, W, cin), device=dev).to(torch.bfloat16)
+    got = ktr.bottleneck_stage(x, packed, cfg)
+    ref = ktr.bottleneck_stage_plain(x, packed, cfg)
+    scale = float(ref.float().abs().max())
+    assert scale > 0 and got.shape == ref.shape == (V, H, W, 4 * cmid)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=1e-2 * scale)
+
+
+def test_fuse_p2p_predictor_cuda_matches_cpu(dev):
+    """The fuse_p2p path on the card through p2pnet and c2cnet (32^3 cubes
+    pass the P2PNet gate), against the same Predictor on the CPU."""
+    from chip_smoke import blob_heatmaps, random_state_dict
+
+    cfg = _cfg(15, 32, min_score=-10.0, fuse_p2p=True)
+    _, rig, _, _ = _inputs(cfg, dev)
+    state = random_state_dict(FasterVoxelPose(cfg), seed=3)
+    hm = blob_heatmaps(cfg, rig, seed=0)
+    pred = Predictor.from_state_dict(cfg, state, rig, device=dev)
+    reset_launches()
+    got = pred(hm)
+    counts = {n: k.launches for n, k in all_kernels().items()}
+    assert all(counts[n] > 0 for n in _FUSE_ONLY), counts
+    ref = Predictor.from_state_dict(cfg, state, rig, device="cpu")(hm)
+    assert bool(ref["mask"].all())
+    assert torch.equal(got["mask"].cpu(), ref["mask"])
+    # bf16 flips between the card's and the CPU's sums move the soft-argmax
+    torch.testing.assert_close(got["fused_poses"].cpu(), ref["fused_poses"],
+                               rtol=0, atol=1.0)
