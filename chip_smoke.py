@@ -12,13 +12,14 @@ non-zero:
 3. for each kernel K1..K5, at the flagship shapes (5 views of 15 joints at
    240x128, an 80x80x20 space, 10 people in 64^3 cubes), holds the kernel
    against its plain PyTorch version on the card, and times kernel, plain
-   version and, where one exists, a library call (CUDA events, warm-up
-   excluded, median); then the same for the `fuse_p2p` kernels, P2PNet on
-   K2's planes and C2CNet on frame 0's z-columns, for the backbone's stem
-   (5 images of 512x960) and its three deconv stages, and for the
-   bottleneck stage on the seeded ResNet-50's own layer1 input, within one
-   bf16 ulp (P2PNet and the stage launch by launch; C2CNet, one launch,
-   as a whole);
+   version and, where one exists, a library call (CUDA events behind a
+   ~1 ms spin of the card, so device time only; warm-up excluded, median;
+   whole_sample also with its GB/s and host enqueue time); then the same for the `fuse_p2p` kernels, P2PNet on K2's planes
+   and C2CNet on frame 0's z-columns, for the backbone's stem (5 images of
+   512x960) and its three deconv stages (each with its tiling plan and
+   host enqueue time), and for the bottleneck stage on the seeded
+   ResNet-50's own layer1 input, within one bf16 ulp (P2PNet and the stage
+   launch by launch; C2CNet, one launch, as a whole);
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -59,6 +60,8 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12           # H100 SXM float32 outside the tensor cores
 PEAK_BF16 = 989e12          # H100 SXM bf16 on the tensor cores, dense
 FRAMES = 12
+# ~1 ms of the card's clock: longer than any one wrapper's host enqueue
+SPIN_CYCLES = 2_000_000
 WARMUP_FRAMES = 2
 # The seeded random weights below give detection confidences whose scale
 # has nothing to do with a trained model's (0.294 .. 0.315 on frame 0,
@@ -212,8 +215,14 @@ def bf16_close(got, ref) -> tuple[float, float]:
     return float(err.max()), float(ulps.max())
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times, warm-up excluded."""
+def time_ms(fn, reps: int = 20, warmup: int = 3,
+            with_enqueue: bool = False) -> float:
+    """Median of per-call CUDA-event times, warm-up excluded. Before each
+    call the card spins for SPIN_CYCLES (torch.cuda._sleep), so that the
+    call is enqueued behind the spin and the events time the device's work
+    alone. With `with_enqueue` (the method of the port's earlier records)
+    the card is idle when the first event is recorded, and the host's time
+    to enqueue the call counts as well."""
     import torch
 
     for _ in range(warmup):
@@ -223,6 +232,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if not with_enqueue:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -386,6 +397,16 @@ def main() -> int:
                    align_corners=True)),
                bound(nbytes(hm, rc.whole_sample_px, vol_k),
                      N * J * V * 8.0 + N * J * 2.0))
+        ws = rows["whole_sample"]
+        ws["gb_per_s"] = nbytes(hm, rc.whole_sample_px, vol_k) / ws["ms"] / 1e6
+        ws["host_enqueue_ms"] = host_ms(
+            lambda: ksamp.whole_sample(hm, rc, cfg))
+        ws["ms_with_enqueue"] = time_ms(
+            lambda: ksamp.whole_sample(hm, rc, cfg), with_enqueue=True)
+        log(f"whole_sample: {ws['gb_per_s']:.1f} GB/s of its "
+            f"{nbytes(hm, rc.whole_sample_px, vol_k) / 1e6:.1f} MB; host time "
+            f"to enqueue one call {ws['host_enqueue_ms']:.4f} ms; timed with "
+            f"the enqueue {ws['ms_with_enqueue']:.4f} ms")
 
         # K3 centernet
         bev = vol_p.amax(dim=3).contiguous()
@@ -621,9 +642,21 @@ def backbone_kernels(pred, images_np, rows) -> None:
                                                padding=1)),
             bound(nbytes(xs, st["w"], st["aff"], got),
                   outs * (2.0 * 4 * C + 2), PEAK_BF16)))
+        stages[-1]["host_enqueue_ms"] = host_ms(
+            lambda: kdh.deconv_stage(xs, st))
+        stages[-1]["ms_with_enqueue"] = time_ms(
+            lambda: kdh.deconv_stage(xs, st), with_enqueue=True)
+        plan = kdh.deconv_plan(V, h, w, C, Fo,
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count)
+        stages[-1]["plan"] = plan._asdict()
+        log(f"  plan {plan}; host time to enqueue one call "
+            f"{stages[-1]['host_enqueue_ms']:.4f} ms; timed with the enqueue "
+            f"{stages[-1]['ms_with_enqueue']:.4f} ms")
         xs = ref
     head = {k: sum(s[k] for s in stages)
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                      "host_enqueue_ms", "ms_with_enqueue")}
     rows["deconv_stage"] = {
         "name": "deconv_stage", "route": "cuda",
         "source": "fvp_torch/csrc/deconv_head.cu",
@@ -634,7 +667,10 @@ def backbone_kernels(pred, images_np, rows) -> None:
         **head, "bound_by": "operations", "stages": stages}
     log(f"deconv_stage, the 3-stage head: kernel_ms={head['ms']:.4f} "
         f"plain_ms={head['plain_ms']:.4f} library_ms="
-        f"{head['library_ms']:.4f} bound_ms={head['bound_ms']:.4f}")
+        f"{head['library_ms']:.4f} bound_ms={head['bound_ms']:.4f} "
+        f"ms_with_enqueue={head['ms_with_enqueue']:.4f} "
+        f"host_enqueue_ms={head['host_enqueue_ms']:.4f} (per stage: "
+        + ", ".join(f"{st['host_enqueue_ms']:.4f}" for st in stages) + ")")
 
 
 class PairedOps:
@@ -868,6 +904,9 @@ def image_breakdown(pred, frame) -> None:
 
     bb, pk = pred.backbone, pred.backbone_packed
 
+    def timed(fn):                   # the card idle at the first event
+        return time_ms(fn, with_enqueue=True)
+
     def trunk_nchw(x):
         for li in range(1, 5):
             x = getattr(bb, f"layer{li}")(x)
@@ -882,18 +921,18 @@ def image_breakdown(pred, frame) -> None:
         hm = pred.heatmaps(frame)
         s_nchw = s.float().permute(0, 3, 1, 2).contiguous()
         parts = {
-            "host-to-device copy of the images (pageable)": time_ms(
+            "host-to-device copy of the images (pageable)": timed(
                 lambda: torch.as_tensor(frame, device=pred.device)),
-            "stem kernel": time_ms(lambda: stem(flat, pk["stem"])),
-            "trunk (float32 cuDNN, TF32 off, channels-last)": time_ms(
+            "stem kernel": timed(lambda: stem(flat, pk["stem"])),
+            "trunk (float32 cuDNN, TF32 off, channels-last)": timed(
                 lambda: bb.trunk(s)),
-            "head (3 deconv launches)": time_ms(
+            "head (3 deconv launches)": timed(
                 lambda: deconv_head(t, pk["head"])),
-            "final_layer": time_ms(lambda: bb.final_layer(h)),
-            "HDN+JLN on the heatmaps": time_ms(
+            "final_layer": timed(lambda: bb.final_layer(h)),
+            "HDN+JLN on the heatmaps": timed(
                 lambda: pred.model(hm, pred.rc, pred.packed)),
         }
-        nchw = time_ms(lambda: trunk_nchw(s_nchw))
+        nchw = timed(lambda: trunk_nchw(s_nchw))
     log("image frame by part (each timed alone):")
     for name, ms in parts.items():
         log(f"  {ms:8.3f} ms  {name}")

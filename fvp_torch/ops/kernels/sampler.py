@@ -42,6 +42,9 @@ def whole_sample(heatmaps: torch.Tensor, rc: RigConstants,
     B, V, J, H, W = heatmaps.shape
     nx, ny, nz = cfg.voxels_per_axis
     N = nx * ny * nz
+    if J not in (15, 17):
+        raise ValueError(f"whole_sample: {J} joints; the kernel is built "
+                         "for 15 and 17")
     check(heatmaps, "heatmaps")
     check(rc.whole_sample_px, "whole_sample_px", (V, 2, N),
           device=heatmaps.device)

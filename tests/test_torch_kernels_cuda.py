@@ -77,12 +77,32 @@ def _model(J, dev):
     return model.to(dev).eval()
 
 
-@pytest.mark.parametrize("J", [15, 17])
-def test_whole_sample_kernel(dev, J):
-    cfg = _cfg(J, 16)
-    _, _, rc, hm = _inputs(cfg, dev)
+@pytest.mark.parametrize("J,B,voxels,outside", [
+    (15, 2, (16, 16, 8), False),
+    (17, 2, (16, 16, 8), False),
+    (15, 1, (15, 13, 7), True),      # N = 1365: a ragged last block
+    (17, 2, (9, 11, 5), True),       # N = 495, B = 2
+])
+def test_whole_sample_kernel(dev, J, B, voxels, outside):
+    """B = 1 and 2, N no multiple of the 256-voxel block, and (outside)
+    coordinates stretched past the heatmap on every side, so that corners
+    fall outside it."""
+    import dataclasses
+
+    cfg = _cfg(J, 16).replace(voxels_per_axis=voxels)
+    _, _, rc, hm = _inputs(cfg, dev, B=B)
+    if outside:
+        w, h = cfg.heatmap_size
+        px = rc.whole_sample_px.clone()
+        px[:, 0] = (px[:, 0] - w / 2) * 1.6 + w / 2
+        px[:, 1] = (px[:, 1] - h / 2) * 1.6 + h / 2
+        inside = ((px[:, 0] >= 0) & (px[:, 0] <= w - 1)
+                  & (px[:, 1] >= 0) & (px[:, 1] <= h - 1))
+        assert 0 < float(inside.float().mean()) < 1
+        rc = dataclasses.replace(rc, whole_sample_px=px.contiguous())
     got = ksamp.whole_sample(hm, rc, cfg)
     ref = ksamp.whole_sample_plain(hm, rc, cfg)
+    assert got.shape == (B, *voxels, J)
     # the same gather arithmetic; the view sum may contract into FMAs
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
@@ -186,6 +206,16 @@ def test_stem_kernel(dev, N, H, W):
     (2, 5, 7, 2048, 256, torch.float32),      # Cin 2048, ragged M tile
     (1, 9, 13, 64, 128, torch.bfloat16),
     (3, 16, 30, 256, 256, torch.bfloat16),
+    # the three stages of the ResNet-50 head, exactly (stage 1 split along K
+    # over a 4-CTA cluster)
+    (5, 16, 30, 2048, 256, torch.float32),
+    (5, 32, 60, 256, 256, torch.bfloat16),
+    (5, 64, 120, 256, 256, torch.bfloat16),
+    # one 16 x 8 patch over a 3 x 6 map: it hangs over the right and bottom
+    # edges, and its taps over the left and top ones
+    (1, 3, 6, 64, 128, torch.bfloat16),
+    # 4 x 32 patches whose last row and column hang over the edges
+    (2, 5, 37, 128, 128, torch.bfloat16),
 ])
 def test_deconv_stage_kernel(dev, V, H, W, C, F, dtype):
     rng = np.random.RandomState(C + W)
@@ -210,6 +240,11 @@ def test_wrappers_reject_bad_cuda_input(dev):
         ksa.soft_argmax(torch.zeros((3, 2, 64, 15), device=dev,
                                     dtype=torch.float64),
                         torch.zeros((3, 64, 2), device=dev), 100.0)
+    with pytest.raises(ValueError, match="Cin % 64"):
+        kdh.deconv_stage(torch.zeros((1, 2, 2, 32), device=dev),
+                         {"w": torch.zeros((4, 4, 32, 128), device=dev,
+                                           dtype=torch.bfloat16),
+                          "aff": torch.zeros((2, 128), device=dev)})
     with pytest.raises(ValueError, match="F % 128"):
         kdh.deconv_stage(torch.zeros((1, 2, 2, 64), device=dev),
                          {"w": torch.zeros((4, 4, 64, 96), device=dev,
