@@ -19,7 +19,9 @@ non-zero:
    512x960) and its three deconv stages (each with its tiling plan and
    host enqueue time), and for the bottleneck stage on the seeded
    ResNet-50's own layer1 input, within one bf16 ulp (P2PNet and the stage
-   launch by launch; C2CNet, one launch, as a whole);
+   launch by launch, each launch also timed alone and printed with its
+   route, tiling plan, shape and bytes; C2CNet, one launch, as a whole);
+   the stem's plan and GB/s, and the wrappers' host enqueue times;
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -35,10 +37,12 @@ non-zero:
    heatmaps;
 6. drives the `fuse_p2p` serving path, the heatmap Predictor with
    `fuse_p2p=True`, for 12 frames with every launch count set to 0 just
-   before, checks that p2pnet and c2cnet ran with K1..K5, prints its
+   before, checks that p2pnet and c2cnet ran with K1..K5 (P2PNet's convs
+   on the routes conv_plan gives them: 21 conv_wgmma, 2 wmma), prints its
    latency and profile and holds frame 0 against the CPU; then drives the
    bottleneck stage's entry point on the layer1 inputs of the 3 image
-   frames, counts at 0 just before (no model path runs it);
+   frames, counts at 0 just before (no model path runs it; all 10 of its
+   convs on conv_wgmma);
 7. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels: TF32 is switched off for cuDNN convs and
@@ -552,6 +556,8 @@ def main() -> int:
     outs, lat, fuse_launches = drive(pred_fuse, frames, K)
     log(f"fuse_p2p path: {FRAMES} frames, launches {fuse_launches}")
     expect_launches(fuse_launches, FUSE_PATH, "fuse_p2p path")
+    expect_conv_routes(K, "p2pnet.conv", fuse_launches["p2pnet"] // 25,
+                       P2PNET_ROUTES)
     fuse_steady = lat[WARMUP_FRAMES:]
     log_latency("fuse_p2p frame latency", lat)
     profile_frames(pred_fuse, frames)
@@ -563,6 +569,7 @@ def main() -> int:
     log(f"bottleneck_stage entry point: {len(img_frames)} frames, launches "
         f"{stage_launches}")
     expect_launches(stage_launches, ("bottleneck_stage",), "stage entry point")
+    expect_conv_routes(K, "bottleneck_stage", len(img_frames), STAGE_ROUTES)
 
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
@@ -620,6 +627,14 @@ def backbone_kernels(pred, images_np, rows) -> None:
             time_ms(lambda: F.conv2d(xl, wl, stride=2, padding=3)),
             bound(nbytes(x, ps["w"], ps["aff"], got),
                   convs * (2.0 * 7 * 7 * 3 + 2), PEAK_BF16))}
+    st = rows["stem"]
+    st["plan"] = kst.stem_plan(N, H, W, torch.cuda.get_device_properties(
+        0).multi_processor_count)._asdict()
+    st["gb_per_s"] = nbytes(x, ps["w"], ps["aff"], got) / st["ms"] / 1e6
+    st["host_enqueue_ms"] = host_ms(lambda: kst.stem(x, ps))
+    log(f"  plan {st['plan']}; {st['gb_per_s']:.1f} GB/s of its "
+        f"{nbytes(x, ps['w'], ps['aff'], got) / 1e6:.1f} MB; host_enqueue_ms "
+        f"{st['host_enqueue_ms']:.4f}")
 
     # stage 1 reads the trunk's float32 output, the others the stage before
     xs = pred.backbone.trunk(ref)
@@ -678,47 +693,111 @@ class PairedOps:
     same inputs, by the kernels and by their plain versions: keeps the worst
     bf16 ulps (bf16_close) and the operation count, and passes the plain
     output on, so that each launch is held against its plain version alone.
-    Its kernel counters are its own: these launches count on no path."""
+    With `timed`, each launch is also timed alone (device time) and logged
+    with its route, plan, shape and bytes. Its kernel counters are its own:
+    these launches count on no path."""
 
-    def __init__(self):
+    def __init__(self, timed: bool = False):
         from fvp_torch.ops.kernels import conv_bf16 as kcv
 
-        self.kernel = kcv.make_ops(kcv.conv_kernel("compare.conv"),
+        self.kcv = kcv
+        self.conv_k = kcv.conv_kernel("compare.conv")
+        self.kernel = kcv.make_ops(self.conv_k,
                                    kcv.pool_kernel("compare.pool"))
         self.plain = kcv.PLAIN
-        self.err = self.ulps = self.flops = 0.0
+        self.err = self.ulps = self.flops = self.bytes = 0.0
         self.launches = 0
+        self.timed = timed
+        self.per_launch = []
 
-    def _held(self, got, ref):
+    def _held(self, got, ref, call, what, plan, moved):
         import torch
 
         torch.cuda.synchronize()
         err, ulps = bf16_close(got, ref)
         self.err, self.ulps = max(self.err, err), max(self.ulps, ulps)
         self.launches += 1
+        self.bytes += moved
+        if self.timed:
+            ms = time_ms(call)
+            rec = {"op": what, "route": plan.route if plan else "pool",
+                   "ms": ms, "bytes": moved, "ulps": ulps,
+                   "plan": plan._asdict() if plan else None}
+            self.per_launch.append(rec)
+            log(f"  launch {self.launches:2d} {what}: route "
+                f"{rec['route']}, {moved / 1e6:.2f} MB, {ms:.4f} ms "
+                f"({moved / ms / 1e6:.0f} GB/s), {ulps:.3f} ulps; plan "
+                + (", ".join(f"{k}={v}" for k, v in plan._asdict().items()
+                             if k != "route") if plan else "-"))
         return ref
 
     def conv(self, x, layer, res=None, relu=False, out_dtype=None):
+        import math
+
         import torch
 
         out_dtype = out_dtype or torch.bfloat16
         taps, cin, f = layer["w"].shape
-        self.flops += x.shape[0] * x.shape[1] * x.shape[2] * f * (
-            2.0 * taps * cin + 2 + (res is not None))
+        N, H, W, _ = x.shape
+        k = math.isqrt(taps)
+        self.flops += N * H * W * f * (2.0 * taps * cin + 2
+                                       + (res is not None))
+        got = self.kernel.conv(x, layer, res, relu, out_dtype)
+        moved = nbytes(x, layer["w"], layer["aff"], got) + (
+            0 if res is None else nbytes(res))
         return self._held(
-            self.kernel.conv(x, layer, res, relu, out_dtype),
-            self.plain.conv(x, layer, res, relu, out_dtype))
+            got, self.plain.conv(x, layer, res, relu, out_dtype),
+            lambda: self.kernel.conv(x, layer, res, relu, out_dtype),
+            f"conv {k}x{k} {tuple(x.shape)} {str(x.dtype)[6:]} -> F {f} "
+            f"{str(out_dtype)[6:]}, residual "
+            f"{None if res is None else str(res.dtype)[6:]}",
+            self.kcv.conv_plan(N, H, W, cin, f, k, 0,
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count), moved)
 
     def upconv(self, x, layer, skip):
+        import torch
+
         cin, f = layer["w"].shape[2:]
-        self.flops += 4.0 * x.shape[0] * x.shape[1] * x.shape[2] * f * (
-            2.0 * cin + 4)
-        return self._held(self.kernel.upconv(x, layer, skip),
-                          self.plain.upconv(x, layer, skip))
+        N, H, W, _ = x.shape
+        self.flops += 4.0 * N * H * W * f * (2.0 * cin + 4)
+        got = self.kernel.upconv(x, layer, skip)
+        return self._held(
+            got, self.plain.upconv(x, layer, skip),
+            lambda: self.kernel.upconv(x, layer, skip),
+            f"upconv {tuple(x.shape)} -> F {f}, skip",
+            self.kcv.conv_plan(N, H, W, cin, f, 1, 1,
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count),
+            nbytes(x, layer["w"], layer["aff"], skip, got))
 
     def pool(self, x):
         self.flops += 3.0 * x.numel() / 4
-        return self._held(self.kernel.pool(x), self.plain.pool(x))
+        got = self.kernel.pool(x)
+        return self._held(got, self.plain.pool(x),
+                          lambda: self.kernel.pool(x),
+                          f"pool {tuple(x.shape)}", None,
+                          nbytes(x, got))
+
+    def summary(self, name) -> dict:
+        """Per-route launch counts and summed device times of the timed
+        launches; logs them."""
+        routes = {}
+        for r in self.per_launch:
+            n, ms = routes.get(r["route"], (0, 0.0))
+            routes[r["route"]] = (n + 1, ms + r["ms"])
+        log(f"{name}: launches by route " + ", ".join(
+            f"{k} {n} ({ms:.4f} ms)" for k, (n, ms) in routes.items())
+            + f"; sum of the launches timed alone "
+            f"{sum(r['ms'] for r in self.per_launch):.4f} ms; their bytes "
+            f"{self.bytes / 1e6:.1f} MB, a layer-by-layer floor of "
+            f"{self.bytes / PEAK_BYTES * 1e3:.4f} ms at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s")
+        return {"routes": {k: n for k, (n, _) in routes.items()},
+                "layer_floor_ms": self.bytes / PEAK_BYTES * 1e3,
+                "launches_timed_alone_ms": sum(r["ms"]
+                                               for r in self.per_launch),
+                "per_launch": self.per_launch}
 
 
 def c2c_flops(N: int, Z: int, J: int) -> float:
@@ -751,8 +830,11 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
 
     cl = torch.channels_last
     pk = pred.packed["p2p_net"]
-    paired = PairedOps()
+    log(f"p2pnet {tuple(planes.shape)}, launch by launch (device time of "
+        "each alone):")
+    paired = PairedOps(timed=True)
     khg.run(pk, planes, paired)
+    launches = paired.summary("p2pnet")
     got, ref = khg.p2pnet(pk, planes), khg.p2pnet_plain(pk, planes)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
@@ -776,7 +858,8 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
                    time_ms(lambda: net16(p16)),
                    bound(nbytes(planes, got, *_leaves(pk)), paired.flops,
                          PEAK_BF16)),
-        "host_enqueue_ms": host_ms(lambda: khg.p2pnet(pk, planes))}
+        "host_enqueue_ms": host_ms(lambda: khg.p2pnet(pk, planes)),
+        **launches}
 
     pc = pred.packed["c2c_net"]
     cols = pred.model.detect(hm, pred.rc, pred.packed)["columns"]
@@ -804,8 +887,8 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
               c2c_flops(*cols.shape), PEAK_BF16)
     rows["c2cnet"].update(bound_ms=b[0], bound_by=b[1])
     for name in ("p2pnet", "c2cnet"):
-        log(f"{name}: host time to enqueue one call "
-            f"{rows[name]['host_enqueue_ms']:.4f} ms")
+        log(f"{name}: host_enqueue_ms (one call) "
+            f"{rows[name]['host_enqueue_ms']:.4f}")
     log(f"c2cnet: kernel_ms={rows['c2cnet']['ms']:.4f} plain_ms="
         f"{rows['c2cnet']['plain_ms']:.4f} library_ms="
         f"{rows['c2cnet']['library_ms']:.4f} bound_ms={b[0]:.4f} ({b[1]})")
@@ -838,8 +921,11 @@ def stage_kernel(pred, images_np, rows) -> None:
     packed, cfg = stage_weights(pred)
     x = kst.stem(torch.as_tensor(images_np, device=pred.device),
                  pred.backbone_packed["stem"])
-    paired = PairedOps()
+    log(f"bottleneck_stage {tuple(x.shape)}, launch by launch (device time "
+        "of each alone):")
+    paired = PairedOps(timed=True)
     ktr.run(x, packed, cfg, paired)
+    launches = paired.summary("bottleneck_stage")
     got = ktr.bottleneck_stage(x, packed, cfg)
     ref = ktr.bottleneck_stage_plain(x, packed, cfg)
     torch.cuda.synchronize()
@@ -871,10 +957,13 @@ def stage_kernel(pred, images_np, rows) -> None:
                          PEAK_BF16)),
         "float32_layer1_ms": f32_ms,
         "host_enqueue_ms": host_ms(lambda: ktr.bottleneck_stage(x, packed,
-                                                                cfg))}
+                                                                cfg)),
+        **launches}
     log(f"  the port's float32 layer1 (cuDNN, TF32 off): {f32_ms:.4f} ms; "
-        "host time to enqueue one call of the stage "
-        f"{rows['bottleneck_stage']['host_enqueue_ms']:.4f} ms")
+        "host_enqueue_ms (one call of the stage) "
+        f"{rows['bottleneck_stage']['host_enqueue_ms']:.4f}; the stage "
+        f"{rows['bottleneck_stage']['ms']:.4f} ms against its "
+        f"layer-by-layer byte floor {launches['layer_floor_ms']:.4f} ms")
 
 
 def bf16_row(name, err, ulps, ms, plain_ms, lib_ms, bnd) -> dict:
@@ -958,8 +1047,29 @@ def launch_counts(K) -> dict:
             + c["centernet.upconv"],
             "soft_argmax": c["soft_argmax"],
             "weightnet_pool": c["weightnet_pool"],
-            "p2pnet": c["p2pnet.conv"] + c["p2pnet.pool"],
-            "c2cnet": c["c2cnet"], "bottleneck_stage": c["bottleneck_stage"]}
+            "p2pnet": c["p2pnet.conv.wgmma"] + c["p2pnet.conv.wmma"]
+            + c["p2pnet.pool"],
+            "c2cnet": c["c2cnet"],
+            "bottleneck_stage": c["bottleneck_stage.wgmma"]
+            + c["bottleneck_stage.wmma"]}
+
+
+# launches per call of each conv route (ops/kernels/conv_bf16.py::
+# conv_plan): P2PNet's 7x7 front and 1x1 output layer on the wmma kernel,
+# its 21 other convs and up-convs and all 10 of the stage's on conv_wgmma
+P2PNET_ROUTES = {"wgmma": 21, "wmma": 2}
+STAGE_ROUTES = {"wgmma": 10, "wmma": 0}
+
+
+def expect_conv_routes(K, name, calls, per_call) -> None:
+    """The conv launches of `calls` calls went through each route as
+    conv_plan routes them (the wrappers' per-route counters)."""
+    c = {k.name: k.launches for k in K.all_kernels().values()}
+    got = {r: c[f"{name}.{r}"] for r in per_call}
+    log(f"{name}: {calls} calls, conv launches by route {got}")
+    if calls < 1 or got != {r: n * calls for r, n in per_call.items()}:
+        raise AssertionError(f"{name}: routes {got}, expected "
+                             f"{per_call} x {calls}")
 
 
 def expect_launches(counts, names, what) -> None:

@@ -50,12 +50,11 @@
 // The tiling (th, tw, BN, the split, the CTA count) is chosen by
 // ops/kernels/deconv_head.py::deconv_plan, which the CPU tests check.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -82,193 +81,16 @@ struct Tile {
   static_assert(kSmemBytes <= 232448, "fits an SM's shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* tm,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* tm,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-// bulk copy of `bytes` (a multiple of 16) from shared to global memory
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-          dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// the source of this thread's bulk stores has been read (or, with
-// `done`, the stores have completed)
-template <bool done>
-__device__ __forceinline__ void bulk_wait() {
-  if (done)
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
+using namespace fvp;
 
 // the two consumer warpgroups only (named barrier 1)
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  named_sync(1, kConsumers);
 }
 
 // one warpgroup (named barriers 2 and 3)
 __device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from the mma accumulator layout (lane l: row
-// l / 4, columns 2 * (l % 4)) to shared memory, lane l addressing row
-// l % 8 of matrix l / 8
-__device__ __forceinline__ void stmatrix_x4(uint32_t addr,
-                                            const uint32_t (&v)[4]) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(
-          addr),
-      "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
-#define FVP_D8(i)                                                  \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D(64 x BN, float32) += A(64 x 16, K-major) . B(16 x BN, MN-major)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}"
-      : FVP_D8(0), FVP_D8(8), FVP_D8(16), FVP_D8(24), FVP_D8(32), FVP_D8(40),
-        FVP_D8(48), FVP_D8(56)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}"
-      : FVP_D8(0), FVP_D8(8), FVP_D8(16), FVP_D8(24), FVP_D8(32), FVP_D8(40),
-        FVP_D8(48), FVP_D8(56), FVP_D8(64), FVP_D8(72), FVP_D8(80),
-        FVP_D8(88), FVP_D8(96), FVP_D8(104), FVP_D8(112), FVP_D8(120)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-#undef FVP_D8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
+  named_sync(2 + wg, 128);
 }
 
 template <int BN, bool kSplit>
@@ -383,8 +205,8 @@ deconv_stage_kernel(const __grid_constant__ CUtensorMap tm_x,
           // A: +32 bytes per 16 channels inside the swizzled 128-byte
           // rows; B: +2 KB per 16 k rows (two 8-row swizzle atoms), the
           // next 64 columns one box (8 KB, the LBO) on
-          wgmma_bf16(d, sw128_desc(a + 32 * k, 16, 1024),
-                     sw128_desc(b + 2048 * k, kBoxBytes, 1024));
+          Wgmma<BN>::mma(d, smem_desc(a + 32 * k, 16, 1024, 128),
+                         smem_desc(b + 2048 * k, kBoxBytes, 1024, 128));
         wgmma_commit();
         if (i > 0) {
           wgmma_wait<1>();             // the previous stage is read: free it
@@ -434,7 +256,7 @@ deconv_stage_kernel(const __grid_constant__ CUtensorMap tm_x,
                       v);
         }
         // the generic-proxy writes, visible to the bulk copies
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        fence_proxy_async();
         warpgroup_sync(wg);
         if (wtid < 64) {
           const int row = 64 * wg + wtid;
@@ -496,24 +318,6 @@ deconv_stage_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
-}
-
 template <int BN, bool kSplit>
 cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w,
                    const float* aff, void* y, int V, int H, int W, int Cin,
@@ -570,7 +374,7 @@ FVP_API int fvp_deconv_stage(const void* x, const void* w, const float* aff,
       (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
       4 * (Cin / BK) < splits)
     return (int)cudaErrorInvalidValue;
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  PFN_cuTensorMapEncodeTiled_v12000 encode = fvp::encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
 
   CUtensorMap tm_x, tm_w;

@@ -8,146 +8,234 @@
 // products summed in float32 (a product of two bf16 values is exact in
 // float32), the affine and ReLU on the float32 sum, the 3x3 max over conv
 // rows and columns {2p-1, 2p, 2p+1} that lie inside the conv map, and the
-// pooled value rounded to bf16.
+// pooled value rounded to bf16. Rounding is monotone, so the kernel rounds
+// the activated conv values to bf16 before the max: the same result.
 //
-// Bound on the H100: memory, 29.5 MB of image in and 19.7 MB of pooled map
-// out at the flagship (5, 512, 960, 3) input; the conv is 1.16e10 float32
-// operations, about 0.17 ms at the card's non-tensor float32 peak, so this
-// SIMT kernel is bound by its arithmetic. Design: a block owns an 8 x 7
-// tile of pooled outputs for all 64 channels. It stages its 39 x 35 x 3
-// input patch (zero outside the image) and the 147 x 64 weights in shared
-// memory as floats, computes the 17 x 15 conv tile that the tile's pool
-// windows cover (one-row and one-column halo) with each thread holding
-// 8 positions x 8 channels in registers, writes the activated conv tile
-// over the operands in shared memory, and takes the pool there. Only the
-// pooled map reaches device memory.
+// Bound on the H100: bytes, 29.5 MB of image in and 19.7 MB of pooled map
+// out at the flagship (5, 512, 960, 3) input (0.0147 ms at 3.35 TB/s); the
+// conv's 1.2e10 operations are ~0.015 ms on the bf16 tensor cores. Design:
+// - a persistent CTA (two per SM) walks pooled tiles of 8 x 16 outputs; a
+//   tile's pool windows cover a 17 x 33 conv tile (the halo recomputes
+//   ~10% of the conv) that reads a 40 x 72 pixel input patch;
+// - the patch is staged in shared memory as bf16 (rounded as it is read,
+//   zero outside the image), rows of 216 values;
+// - the conv is a GEMM (561 conv positions) x (K) by (K x 64) on mma.sync
+//   m16n8k16 (bf16 operands, float32 sums). Per ky, the 21 values (kx, c)
+//   a conv position needs are contiguous in its patch row, so K runs over
+//   (ky, j) with j padded from 21 to 24 (zero weights), 7 x 24 = 168 padded
+//   to 176 = 11 k16 steps: each A register is one 32-bit load from the
+//   patch, no im2col tile. The weights, in the mma's B fragment order, stay
+//   in shared memory for the CTA's life;
+// - each warp takes two 16-row m tiles at a time (B fragments shared); the
+//   affine and ReLU apply to the accumulators, the conv tile is stored as
+//   bf16 in shared memory (16-byte chunks XOR-swizzled by row), and the
+//   pool is taken there; the pooled map leaves in 16-byte stores.
+// The tiling is ops/kernels/stem.py::stem_plan, which the CPU tests check.
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kF = 64, kTaps = 7 * 7 * 3;
-constexpr int TPH = 8, TPW = 7;                   // pooled tile
-constexpr int CR = 2 * TPH + 1, CC = 2 * TPW + 1; // conv tile 17 x 15
-constexpr int NP = CR * CC;                       // 255 conv positions
-constexpr int IR = 4 * TPH + 7, IC = 4 * TPW + 7; // input patch 39 x 35
-constexpr int kThreads = 256;
-constexpr int kPos = 8;                           // positions per thread
-constexpr int kIn = (IR * IC * 3 + 3) / 4 * 4;     // float4-aligned weights
-constexpr int kOperands = kIn + kTaps * kF;
-constexpr int kUnion = (kOperands > NP * kF) ? kOperands : NP * kF;
-constexpr size_t kSmemBytes = sizeof(float) * (kUnion + 2 * kF);
-static_assert(32 * kPos >= NP, "positions per thread");
+using bf16 = __nv_bfloat16;
+
+constexpr int kF = 64;
+constexpr int TPH = 8, TPW = 16;                   // pooled tile
+constexpr int CR = 2 * TPH + 1, CC = 2 * TPW + 1;  // conv tile 17 x 33
+constexpr int NPOS = CR * CC;                      // 561 conv positions
+constexpr int kMTiles = (NPOS + 15) / 16;          // 36 m16 tiles
+constexpr int kPairs = kMTiles / 2;                // 18
+constexpr int PRW = 4 * TPH + 8;                   // patch rows (40)
+constexpr int PCL = 4 * TPW + 8;                   // patch pixels (72)
+constexpr int RS = 3 * PCL;                        // patch row stride (216)
+constexpr int KY = 24;                             // K per ky, padded
+constexpr int kSteps = (7 * KY + 15) / 16;         // 11 k16 steps
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+static_assert(kMTiles % 2 == 0, "m tiles in pairs");
+static_assert(16 * kSteps <= 8 * KY, "padded K stays inside the patch");
+static_assert(2 * (CR - 1) + 7 < PRW && 6 * (CC - 1) + KY <= RS, "patch");
+
+// shared memory: B fragments, the conv tile, the patch, the affine
+constexpr int kWFragBytes = kSteps * 8 * 32 * 8;   // 22528
+constexpr int kConvBytes = NPOS * kF * 2;          // 71808
+constexpr int kPatchBytes = PRW * RS * 2;          // 17280
+constexpr int kSmemBytes = kWFragBytes + kConvBytes + kPatchBytes + 2 * kF * 4;
+static_assert(2 * (kSmemBytes + 1024) <= 233472, "two CTAs per SM");
+
+__device__ __forceinline__ uint32_t bf16_bits(bf16 v) {
+  return static_cast<uint32_t>(*reinterpret_cast<uint16_t*>(&v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// offset in the patch of padded K index k = 24 ky + j (j = 3 kx + c)
+__device__ __forceinline__ int k_off(int k) { return (k / KY) * RS + k % KY; }
 
 __global__ void __launch_bounds__(kThreads, 2)
-stem_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-            const float* __restrict__ aff, __nv_bfloat16* __restrict__ out,
-            int H, int W, int Hc, int Wc, int Hp, int Wp) {
-  extern __shared__ __align__(16) float sm[];
-  float* in = sm;                                 // (IR, IC, 3)
-  float* ws = sm + kIn;                           // (147, 64)
-  float* conv = sm;                               // (NP, 64), after the conv
-  float* sa = sm + kUnion;                        // (2, 64)
-  const int tid = threadIdx.x, b = blockIdx.z;
-  const int py0 = blockIdx.y * TPH, px0 = blockIdx.x * TPW;
-  const int gy0 = 4 * py0 - 5, gx0 = 4 * px0 - 5;
+stem_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
+            const float* __restrict__ aff, bf16* __restrict__ out, int H,
+            int W, int Hc, int Wc, int Hp, int Wp, int tiles_h, int tiles_w,
+            int tiles) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  uint2* wfrag = reinterpret_cast<uint2*>(sm);
+  bf16* conv = reinterpret_cast<bf16*>(sm + kWFragBytes);   // (NPOS, 64)
+  bf16* patch = reinterpret_cast<bf16*>(sm + kWFragBytes + kConvBytes);
+  float* sa = reinterpret_cast<float*>(sm + kWFragBytes + kConvBytes +
+                                       kPatchBytes);        // (2, 64)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  const float* xb = x + (long long)b * H * W * 3;
-  for (int i = tid; i < IR * IC * 3; i += kThreads) {
-    const int lr = i / (IC * 3), rem = i % (IC * 3);
-    const int gy = gy0 + lr, gx = gx0 + rem / 3;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = __ldg(xb + ((long long)gy * W + gx) * 3 + rem % 3);
-    in[i] = __bfloat162float(__float2bfloat16_rn(v));
-  }
-  const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(w);
-  for (int i = tid; i < kTaps * kF / 2; i += kThreads) {
-    const float2 v = __bfloat1622float2(w2[i]);
-    ws[2 * i] = v.x;
-    ws[2 * i + 1] = v.y;
+  // B fragments of every k16 step and 8-channel n tile: lane (g, t) holds
+  // k = 16 s + 2 t + {0, 1} and + 8, channel 8 nt + g; zero where the
+  // padded K index has no tap
+  for (int i = tid; i < kSteps * 8 * 32; i += kThreads) {
+    const int l = i & 31, nt = (i >> 5) & 7, s = i >> 8;
+    const int n = nt * 8 + (l >> 2);
+    uint32_t r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 16 * s + 2 * (l & 3) + 8 * h + e;
+        const int ky = k / KY, j = k % KY;
+        const uint32_t b =
+            ky < 7 && j < 21 ? bf16_bits(w[(ky * 21 + j) * kF + n]) : 0u;
+        v |= b << (16 * e);
+      }
+      r[h] = v;
+    }
+    wfrag[i] = make_uint2(r[0], r[1]);
   }
   if (tid < 2 * kF) sa[tid] = aff[tid];
-  __syncthreads();
 
-  // conv: channels [8cg, 8cg+8) at positions pg + 32i
-  const int cg = tid & 7, pg = tid >> 3;
-  int base[kPos];
-#pragma unroll
-  for (int i = 0; i < kPos; ++i) {
-    const int pos = min(pg + 32 * i, NP - 1);     // the one spare recomputes
-    base[i] = (2 * (pos / CC) * IC + 2 * (pos % CC)) * 3;
-  }
-  float acc[kPos][8];
-#pragma unroll
-  for (int i = 0; i < kPos; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  const int per_img = tiles_h * tiles_w;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b = tile / per_img, rem = tile - b * per_img;
+    const int py0 = (rem / tiles_w) * TPH, px0 = (rem % tiles_w) * TPW;
+    const int gy0 = 4 * py0 - 5, gx0 = 4 * px0 - 5;
+    __syncthreads();               // the last tile's pool has read `conv`
 
-  const float4* ws4 = reinterpret_cast<const float4*>(ws) + cg * 2;
-  for (int ky = 0; ky < 7; ++ky) {
+    // the input patch, bf16, zero outside the image
+    const float* xb = x + (long long)b * H * W * 3;
+    for (int i = tid; i < PRW * RS; i += kThreads) {
+      const int r = i / RS, e = i - r * RS;
+      const int gy = gy0 + r, gx = gx0 + e / 3;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = __ldg(xb + ((long long)gy * W + gx0) * 3 + e);
+      patch[i] = __float2bfloat16_rn(v);
+    }
+    __syncthreads();
+
+    // the conv: m tiles 2 p, 2 p + 1 per step of this warp
+    for (int p = warp; p < kPairs; p += kWarps) {
+      int base[2][2];
 #pragma unroll
-    for (int kx = 0; kx < 7; ++kx) {
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int tap = (ky * 7 + kx) * 3 + c;
-        const float4 w0 = ws4[tap * (kF / 4)], w1 = ws4[tap * (kF / 4) + 1];
-        const int off = (ky * IC + kx) * 3 + c;
+        for (int h = 0; h < 2; ++h) {
+          const int pos = min(16 * (2 * p + mi) + g + 8 * h, NPOS - 1);
+          const int cl = pos / CC, cc = pos - cl * CC;
+          base[mi][h] = 2 * cl * RS + 6 * cc;
+        }
+      float acc[2][8][4];
 #pragma unroll
-        for (int i = 0; i < kPos; ++i) {
-          const float v = in[base[i] + off];
-          acc[i][0] += v * w0.x;
-          acc[i][1] += v * w0.y;
-          acc[i][2] += v * w0.z;
-          acc[i][3] += v * w0.w;
-          acc[i][4] += v * w1.x;
-          acc[i][5] += v * w1.y;
-          acc[i][6] += v * w1.z;
-          acc[i][7] += v * w1.w;
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        uint2 bf[8];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) bf[nt] = wfrag[(s * 8 + nt) * 32 + lane];
+        const int k0 = k_off(16 * s + 2 * t), k1 = k_off(16 * s + 2 * t + 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const uint32_t a0 =
+              *reinterpret_cast<const uint32_t*>(patch + base[mi][0] + k0);
+          const uint32_t a1 =
+              *reinterpret_cast<const uint32_t*>(patch + base[mi][1] + k0);
+          const uint32_t a2 =
+              *reinterpret_cast<const uint32_t*>(patch + base[mi][0] + k1);
+          const uint32_t a3 =
+              *reinterpret_cast<const uint32_t*>(patch + base[mi][1] + k1);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            mma_bf16(acc[mi][nt], a0, a1, a2, a3, bf[nt].x, bf[nt].y);
         }
       }
-    }
-  }
-  __syncthreads();                                // operands are dead now
 
+      // affine, ReLU, bf16 into the conv tile: row pos, 16-byte chunk nt
+      // stored at chunk nt ^ (pos % 8)
 #pragma unroll
-  for (int i = 0; i < kPos; ++i) {
-    const int pos = pg + 32 * i;
-    if (pos < NP) {
-      float h[8];
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int f = cg * 8 + c;
-        h[c] = fmaxf(acc[i][c] * sa[f] + sa[kF + f], 0.f);
-      }
-      float4* dst = reinterpret_cast<float4*>(conv + pos * kF + cg * 8);
-      dst[0] = make_float4(h[0], h[1], h[2], h[3]);
-      dst[1] = make_float4(h[4], h[5], h[6], h[7]);
+        for (int h = 0; h < 2; ++h) {
+          const int pos = 16 * (2 * p + mi) + g + 8 * h;
+          if (pos >= NPOS) continue;
+          uint32_t* row = reinterpret_cast<uint32_t*>(conv + pos * kF);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int ch = nt * 8 + 2 * t;
+            const float v0 =
+                fmaxf(acc[mi][nt][2 * h] * sa[ch] + sa[kF + ch], 0.f);
+            const float v1 =
+                fmaxf(acc[mi][nt][2 * h + 1] * sa[ch + 1] + sa[kF + ch + 1],
+                      0.f);
+            row[((nt ^ (pos & 7)) * 8 + 2 * t) / 2] = pack_bf16(v0, v1);
+          }
+        }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // pool: conv rows/cols {2p-1, 2p, 2p+1} inside [0, Hc) x [0, Wc)
-  const int f = tid % kF;
-  for (int q = tid / kF; q < TPH * TPW; q += kThreads / kF) {
-    const int ly = q / TPW, lx = q % TPW;
-    const int py = py0 + ly, px = px0 + lx;
-    if (py >= Hp || px >= Wp) continue;
-    float m = -INFINITY;
+    // the pool: conv rows / cols {2p-1, 2p, 2p+1} inside [0, Hc) x [0, Wc);
+    // the activated values are >= 0, so the max starts at 0
+    for (int i = tid; i < TPH * TPW * 8; i += kThreads) {
+      const int c8 = i & 7, q = i >> 3;
+      const int ly = q / TPW, lx = q - ly * TPW;
+      const int py = py0 + ly, px = px0 + lx;
+      if (py >= Hp || px >= Wp) continue;
+      __nv_bfloat162 m[4];
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const int cy = 2 * py - 1 + dy;
-      if (cy < 0 || cy >= Hc) continue;
+      for (int e = 0; e < 4; ++e) m[e] = __floats2bfloat162_rn(0.f, 0.f);
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int cx = 2 * px - 1 + dx;
-        if (cx < 0 || cx >= Wc) continue;
-        m = fmaxf(m, conv[((2 * ly + dy) * CC + 2 * lx + dx) * kF + f]);
+      for (int dy = 0; dy < 3; ++dy) {
+        const int cy = 2 * py - 1 + dy;
+        if (cy < 0 || cy >= Hc) continue;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int cx = 2 * px - 1 + dx;
+          if (cx < 0 || cx >= Wc) continue;
+          const int pos = (2 * ly + dy) * CC + 2 * lx + dx;
+          const uint4 v = reinterpret_cast<const uint4*>(
+              conv + pos * kF)[c8 ^ (pos & 7)];
+          const __nv_bfloat162* vv = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m[e] = __hmax2(m[e], vv[e]);
+        }
       }
+      reinterpret_cast<uint4*>(out)[(((long long)b * Hp + py) * Wp + px) * 8 +
+                                    c8] = *reinterpret_cast<const uint4*>(m);
     }
-    out[(((long long)b * Hp + py) * Wp + px) * kF + f] = __float2bfloat16_rn(m);
   }
 }
 
@@ -155,18 +243,23 @@ stem_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
 
 // x (N, H, W, 3) float32; w (7, 7, 3, 64) bf16; aff (2, 64) float32 (scale,
 // shift); out (N, Hp, Wp, 64) bf16 with Hc = (H-1)/2 + 1, Hp = (Hc-1)/2 + 1
-// (likewise W).
+// (likewise W). The tiling comes from stem_plan: pooled tiles of tph x tpw
+// (the kernel's 8 x 16), `ctas` persistent CTAs. out 16-byte aligned.
 FVP_API int fvp_stem(const float* x, const void* w, const float* aff,
                      void* out, int N, int H, int W, int Hc, int Wc, int Hp,
-                     int Wp, void* stream) {
-  if (N <= 0 || Hp <= 0 || Wp <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Wp + TPW - 1) / TPW, (Hp + TPH - 1) / TPH, N);
-  stem_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      x, static_cast<const __nv_bfloat16*>(w), aff,
-      static_cast<__nv_bfloat16*>(out), H, W, Hc, Wc, Hp, Wp);
+                     int Wp, int tph, int tpw, int ctas, void* stream) {
+  if (N <= 0 || Hp <= 0 || Wp <= 0 || tph != TPH || tpw != TPW || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int tiles_h = (Hp + TPH - 1) / TPH, tiles_w = (Wp + TPW - 1) / TPW;
+  stem_kernel<<<ctas, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      x, static_cast<const bf16*>(w), aff, static_cast<bf16*>(out), H, W, Hc,
+      Wc, Hp, Wp, tiles_h, tiles_w, N * tiles_h * tiles_w);
   return (int)cudaGetLastError();
 }

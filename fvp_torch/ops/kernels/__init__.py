@@ -8,6 +8,8 @@ that it went through the kernels.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fvp_torch.ops.kernels._build import load
@@ -52,6 +54,12 @@ def check(t: torch.Tensor, name: str, shape=None,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (a persistent grid's size)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def all_kernels() -> dict[str, Kernel]:
     """name -> Kernel for every kernel entry point of the port."""
     from fvp_torch.ops.kernels import c2cnet, centernet, deconv_head
@@ -60,7 +68,8 @@ def all_kernels() -> dict[str, Kernel]:
     ks = [stem.STEM, deconv_head.DECONV, sampler.WHOLE_SAMPLE,
           sampler.PERSON_PLANES, centernet.CONV, centernet.POOL,
           centernet.UPCONV, softargmax.SOFT_ARGMAX, weightnet.WEIGHTNET_POOL,
-          hourglass.CONV, hourglass.POOL, c2cnet.C2C, trunk.CONV]
+          hourglass.CONV.wgmma, hourglass.CONV.wmma, hourglass.POOL, c2cnet.C2C,
+          trunk.CONV.wgmma, trunk.CONV.wmma]
     return {k.name: k for k in ks}
 
 

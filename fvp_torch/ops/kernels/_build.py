@@ -37,9 +37,10 @@ SIGNATURES = {
     "fvp_upconv2_nhwc": [_P] * 6 + [_I] * 5 + [_P],
     "fvp_soft_argmax": [_P] * 5 + [_I] * 4 + [_F, _P],
     "fvp_weightnet_pool": [_P] * 5 + [_I] * 5 + [_P],
-    "fvp_stem": [_P] * 4 + [_I] * 7 + [_P],
+    "fvp_stem": [_P] * 4 + [_I] * 10 + [_P],
     "fvp_deconv_stage": [_P] * 4 + [_I] * 10 + [_P],
     "fvp_conv_bf16": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 9 + [_P],
+    "fvp_conv_wgmma": [_P] * 4 + [_I, _P] + [_I] * 15 + [_P],
     "fvp_maxpool2_bf16": [_P, _P] + [_I] * 4 + [_P],
     "fvp_c2cnet": [_P] * 4 + [_I] * 3 + [_P],
 }

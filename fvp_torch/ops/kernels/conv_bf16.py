@@ -19,25 +19,53 @@ fvp_tpu/ops/pallas/trunk.py::_stage_kernel):
 `layer` (engine/packing.py) is {"w": (k*k, Cin, F) bf16, taps in row-major
 (dy, dx) order, or (2, 2, Cin, F) bf16 for an up-conv; "aff": (2, F)
 float32 (scale, shift)}. `make_ops(conv_kernel, pool_kernel)` gives the
-three ops on the card, each launch counted on the given Kernel; `PLAIN`
+three ops on the card, each launch counted on the given kernels; `PLAIN`
 gives the plain versions on any device.
+
+A conv or up-conv launches one of two kernels, chosen by its shape alone
+(`conv_plan`): `conv_wgmma` (TMA + wgmma, persistent) where its input has
+16, 32 or a multiple of 64 channels and N (F, or 4 F for an up-conv) is a
+power of two from 16 to 256; `conv_bf16_kernel` (wmma) for the rest.
+`conv_plan` and the functions beside it are the tiling, in Python so that
+the CPU tests can check it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from fvp_torch.ops.kernels import Kernel, check, ptr
+from fvp_torch.ops.kernels import Kernel, check, ptr, sm_count
 
 _BF = torch.bfloat16
 
+TILE_M = 128             # GEMM rows (output pixels) of a tile, both kernels
+H100_SMS = 132
+MAX_SMEM = 232448        # dynamic shared memory one block may use
+MAX_STAGES = 8
+WGMMA_N = (16, 32, 64, 128, 256)
 
-def conv_kernel(name: str) -> Kernel:
-    return Kernel(name, "fvp_conv_bf16")
+
+class ConvKernels:
+    """The two kernels behind one net's convs, each counting its own
+    launches: `wgmma` (fvp_conv_wgmma) and `wmma` (fvp_conv_bf16)."""
+
+    def __init__(self, name: str):
+        self.wgmma = Kernel(f"{name}.wgmma", "fvp_conv_wgmma")
+        self.wmma = Kernel(f"{name}.wmma", "fvp_conv_bf16")
+
+    @property
+    def launches(self) -> int:
+        return self.wgmma.launches + self.wmma.launches
+
+
+def conv_kernel(name: str) -> ConvKernels:
+    return ConvKernels(name)
 
 
 def pool_kernel(name: str) -> Kernel:
@@ -86,9 +114,144 @@ PLAIN = SimpleNamespace(conv=conv_plain, upconv=upconv_plain,
                         pool=pool_plain)
 
 
+# -- the tiling ---------------------------------------------------------------
+
+class ConvPlan(NamedTuple):
+    """How a conv is tiled. route "wgmma": th x tw patches of one image
+    (tiles_h x tiles_w per image, `mtiles` in all) by all `bn` = N columns;
+    K in blocks of one column dx of the k x k taps by `bk` channels, whose
+    A box is the patch with k - 1 more rows (`swizzle_a` bytes wide) and
+    whose B is k taps of boxes of `bw` columns (`swizzle_b` bytes wide); a
+    ring of `stages`, `ctas` persistent CTAs, K not split (`splits` 1).
+    route "wmma" (`conv_bf16_kernel`): `mtiles` flat tiles of 128 pixels
+    (th = 1, tw = 128) by `bn` columns, K in steps of 32 double-buffered,
+    one CTA per tile."""
+    route: str
+    th: int
+    tw: int
+    tiles_h: int
+    tiles_w: int
+    bk: int
+    swizzle_a: int
+    bw: int
+    swizzle_b: int
+    bn: int
+    stages: int
+    splits: int
+    mtiles: int
+    ctas: int
+
+
+def _kb(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def stage_bytes(bk: int, bn: int, k: int, th: int, tw: int) -> int:
+    """One ring stage of conv_wgmma: the A box ((th + k - 1) x tw pixels
+    of bk channels) and the B boxes of a column's k taps, each rounded up
+    to the 1 KB of a swizzle atom."""
+    return _kb(_kb((th + k - 1) * tw * bk * 2) + k * bk * bn * 2)
+
+
+def smem_bytes(bk: int, bn: int, stages: int, k: int, th: int,
+               tw: int) -> int:
+    """conv_wgmma's dynamic shared memory: 1 KB of alignment, the ring, the
+    staged output tile (rows of 2 bn + 16 bytes), the affine per column and
+    the ring's mbarriers."""
+    return (1024 + stages * stage_bytes(bk, bn, k, th, tw)
+            + TILE_M * (2 * bn + 16) + 2 * bn * 4 + 2 * stages * 8)
+
+
+def _stages(bk: int, bn: int, k: int, th: int, tw: int) -> int:
+    stages = MAX_STAGES
+    while stages > 1 and smem_bytes(bk, bn, stages, k, th, tw) > MAX_SMEM:
+        stages -= 1
+    return stages
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(N: int, H: int, W: int, Cin: int, Fo: int, k: int, mode: int,
+              sms: int = H100_SMS) -> ConvPlan:
+    """The route and tiling of a k x k SAME conv (mode 0) or a 2x2
+    stride-2 up-conv (mode 1, k = 1) of an (N, H, W, Cin) map to Fo
+    channels. conv_wgmma takes it where bk = min(Cin, 64) and bw = min(Fo,
+    64) are 16, 32 or 64 and divide Cin and Fo (TMA boxes of 32, 64 or 128
+    bytes) and N is a power of two from 16 to 256 (one wgmma N tile); its
+    patch is 8 x 16 pixels (16 x 8 where W <= 8), its ring as deep as
+    shared memory allows (at most 8; bk 32 where two 64-channel stages do
+    not fit), one CTA per SM where the tiles outnumber the SMs, else one
+    per tile."""
+    ncols = 4 * Fo if mode else Fo
+    bk, bw = min(Cin, 64), min(Fo, 64)
+    if (bk in (16, 32, 64) and Cin % bk == 0 and bw in (16, 32, 64)
+            and Fo % bw == 0 and ncols in WGMMA_N):
+        tw = 16 if W > 8 else 8
+        th = TILE_M // tw
+        tiles_h, tiles_w = -(-H // th), -(-W // tw)
+        stages = _stages(bk, ncols, k, th, tw)
+        if stages < 2:                  # the ring needs two stages
+            bk = 32
+            stages = _stages(bk, ncols, k, th, tw)
+        mtiles = N * tiles_h * tiles_w
+        return ConvPlan("wgmma", th, tw, tiles_h, tiles_w, bk, 2 * bk, bw,
+                        2 * bw, ncols, stages, 1, mtiles, min(mtiles, sms))
+    bn = next(b for b in (16, 32, 64, 128) if ncols <= b or b == 128)
+    mtiles = -(-N * H * W // TILE_M)
+    return ConvPlan("wmma", 1, TILE_M, mtiles, 1, 32, 0, bn, 0, bn, 2, 1,
+                    mtiles, mtiles * -(-ncols // bn))
+
+
+def patch_origin(plan: ConvPlan, mt: int) -> tuple[int, int, int]:
+    """(image, h0, w0) of conv_wgmma's M tile `mt`."""
+    per_img = plan.tiles_h * plan.tiles_w
+    rem = mt % per_img
+    return mt // per_img, rem // plan.tiles_w * plan.th, \
+        rem % plan.tiles_w * plan.tw
+
+
+def k_blocks(Cin: int, k: int, plan: ConvPlan) -> list[tuple[int, int, int]]:
+    """conv_wgmma's products in the order it takes them: (dy, dx, c0) of
+    tap (dy, dx), channels c0 .. c0 + bk. A ring stage holds one column dx
+    and channel block c0, its taps dy in turn."""
+    return [(dy, dx, c0) for dx in range(k) for c0 in range(0, Cin, plan.bk)
+            for dy in range(k)]
+
+
+def b_boxes(Fo: int, plan: ConvPlan) -> list[tuple[int, int]]:
+    """(parity, first channel) of each bw-column box of a K block's B: a
+    conv's N is its F channels (parity 0), an up-conv's the four parities'
+    F channels side by side."""
+    return [(c // Fo, c % Fo) for c in range(0, plan.bn, plan.bw)]
+
+
 # -- kernel launches ----------------------------------------------------------
 
 _RES_KIND = {None: 0, _BF: 1, torch.float32: 2}
+
+
+def _aligned(*ts) -> None:
+    if any(t is not None and t.data_ptr() % 16 for t in ts):
+        raise ValueError("conv_bf16: x, w, res and y must be 16-byte aligned")
+
+
+def _launch(kern, x, w, aff, res, y, Cin, Fo, k, mode, relu):
+    """Launch the plan's kernel: x (N, H, W, Cin), y the output."""
+    N, H, W, _ = x.shape
+    rk = _RES_KIND[None if res is None else res.dtype]
+    yf = int(y.dtype == torch.float32)
+    plan = conv_plan(N, H, W, Cin, Fo, k, mode, sm_count(x.device))
+    if plan.route == "wgmma":
+        # TMA copies bytes: a float32 x is rounded to bf16 once, to nearest
+        # even, as the wmma kernel rounds it while it reads
+        xb = x if x.dtype == _BF else x.to(_BF)
+        _aligned(xb, w, res, y)
+        kern.wgmma(ptr(xb), ptr(w), ptr(aff), ptr(res), rk, ptr(y), yf, N, H,
+                   W, Cin, Fo, k, mode, int(relu), plan.th, plan.tw, plan.bk,
+                   plan.bw, plan.stages, plan.ctas)
+    else:
+        kern.wmma(ptr(x), int(x.dtype == _BF), ptr(w), ptr(aff), ptr(res),
+                  rk, ptr(y), yf, N, H, W, Cin, Fo, k, mode, int(relu))
+    return y
 
 
 def _launch_conv(kern, x, layer, res, relu, out_dtype):
@@ -111,10 +274,7 @@ def _launch_conv(kern, x, layer, res, relu, out_dtype):
             raise ValueError(f"conv_bf16: residual dtype {res.dtype}")
         check(res, "res", (N, H, W, Fo), dtype=res.dtype, device=x.device)
     y = torch.empty((N, H, W, Fo), dtype=out_dtype, device=x.device)
-    kern(ptr(x), int(x.dtype == _BF), ptr(w), ptr(aff), ptr(res),
-         _RES_KIND[None if res is None else res.dtype], ptr(y),
-         int(out_dtype == torch.float32), N, H, W, Cin, Fo, k, 0, int(relu))
-    return y
+    return _launch(kern, x, w, aff, res, y, Cin, Fo, k, 0, relu)
 
 
 def _launch_upconv(kern, x, layer, skip):
@@ -126,9 +286,7 @@ def _launch_upconv(kern, x, layer, skip):
     check(aff, "aff", (2, Fo), device=x.device)
     check(skip, "skip", (N, 2 * H, 2 * W, Fo), dtype=_BF, device=x.device)
     y = torch.empty((N, 2 * H, 2 * W, Fo), dtype=_BF, device=x.device)
-    kern(ptr(x), 1, ptr(w), ptr(aff), ptr(skip), 1, ptr(y), 0, N, H, W,
-         Cin, Fo, 1, 1, 1)
-    return y
+    return _launch(kern, x, w, aff, skip, y, Cin, Fo, 1, 1, True)
 
 
 def _launch_pool(kern, x):
@@ -141,9 +299,11 @@ def _launch_pool(kern, x):
     return y
 
 
-def make_ops(conv_k: Kernel, pool_k: Kernel | None = None) -> SimpleNamespace:
+def make_ops(conv_k: ConvKernels, pool_k: Kernel | None = None
+             ) -> SimpleNamespace:
     """The three ops on CUDA tensors, launching the kernels and counting
-    each launch on `conv_k` (convs and up-convs) or `pool_k` (pools)."""
+    each launch on `conv_k` (convs and up-convs, on the route's kernel) or
+    `pool_k` (pools)."""
     return SimpleNamespace(
         conv=lambda x, layer, res=None, relu=False, out_dtype=_BF:
             _launch_conv(conv_k, x, layer, res, relu, out_dtype),

@@ -21,13 +21,12 @@ y[oy, ox] with r = (oy+1) % 2, i' = (oy+1) // 2 (likewise s, j' for x) is
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from fvp_torch.ops.kernels import Kernel, check, ptr
+from fvp_torch.ops.kernels import Kernel, check, ptr, sm_count
 
 DECONV = Kernel("deconv_stage", "fvp_deconv_stage")
 
@@ -157,17 +156,12 @@ def deconv_stage(x: torch.Tensor, packed: dict) -> torch.Tensor:
     if xb.data_ptr() % 16 or w.data_ptr() % 16 or aff.data_ptr() % 16:
         raise ValueError("deconv_stage: x, w and aff must be 16-byte "
                          "aligned")
-    plan = deconv_plan(V, H, W, C, Fo, _sms(x.device))
+    plan = deconv_plan(V, H, W, C, Fo, sm_count(x.device))
     y = torch.empty((V, 2 * H, 2 * W, Fo), dtype=torch.bfloat16,
                     device=x.device)
     DECONV(ptr(xb), ptr(w), ptr(aff), ptr(y), V, H, W, C, Fo, plan.th,
            plan.tw, plan.splits, plan.bn, plan.ctas)
     return y
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def deconv_head(x: torch.Tensor, stages: list) -> torch.Tensor:

@@ -9,17 +9,78 @@ bf16, products summed in float32, the affine and ReLU on the float32 sum,
 the pooled map rounded to bf16. A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises. `packed` comes from
 engine/packing.py::pack_backbone: {"w": (7, 7, 3, 64) bf16, "aff": (2, 64)
-float32 (scale, shift)}.
+float32 (scale, shift)}. `stem_plan` and the functions beside it are the
+kernel's tiling, in Python so that the CPU tests can check it.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
-from fvp_torch.ops.kernels import Kernel, check, ptr
+from fvp_torch.ops.kernels import Kernel, check, ptr, sm_count
 
 STEM = Kernel("stem", "fvp_stem")
+
+# the kernel's tiling (csrc/stem.cu): pooled tiles of 8 x 16 outputs, the
+# 17 x 33 conv tile their pool windows cover, K per ky padded from 21 (kx, c)
+# values to 24 and in all from 7 x 24 to 11 k16 steps
+POOL_TILE = (8, 16)
+K_PER_KY = 24
+K_PAD = 176
+CTAS_PER_SM = 2
+H100_SMS = 132
+
+
+class StemPlan(NamedTuple):
+    """Pooled tiles of tph x tpw outputs (tiles_h x tiles_w per image,
+    `tiles` in all), each computing a conv_h x conv_w conv tile, K padded
+    to k_pad (k_per_ky per kernel row), run by `ctas` persistent CTAs."""
+    tph: int
+    tpw: int
+    conv_h: int
+    conv_w: int
+    k_per_ky: int
+    k_pad: int
+    tiles_h: int
+    tiles_w: int
+    tiles: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(N: int, H: int, W: int, sms: int = H100_SMS) -> StemPlan:
+    """The kernel's tiling of an (N, H, W, 3) image batch: two persistent
+    CTAs per SM (or one per tile) walk the pooled tiles."""
+    tph, tpw = POOL_TILE
+    Hp, Wp = out_size(H)[1], out_size(W)[1]
+    tiles_h, tiles_w = -(-Hp // tph), -(-Wp // tpw)
+    tiles = N * tiles_h * tiles_w
+    return StemPlan(tph, tpw, 2 * tph + 1, 2 * tpw + 1, K_PER_KY, K_PAD,
+                    tiles_h, tiles_w, tiles, min(tiles, CTAS_PER_SM * sms))
+
+
+def tile_origin(plan: StemPlan, tile: int) -> tuple[int, int, int]:
+    """(image, py0, px0) of pooled tile `tile`; its conv tile starts at
+    conv (2 py0 - 1, 2 px0 - 1) and reads the input from (4 py0 - 5,
+    4 px0 - 5)."""
+    per_img = plan.tiles_h * plan.tiles_w
+    rem = tile % per_img
+    return tile // per_img, rem // plan.tiles_w * plan.tph, \
+        rem % plan.tiles_w * plan.tpw
+
+
+def padded_weight(w: torch.Tensor, plan: StemPlan) -> torch.Tensor:
+    """(7, 7, 3, 64) -> the kernel's (k_pad, 64) B operand: row 24 ky + j
+    is w[ky, j // 3, j % 3] for j < 21, zero otherwise."""
+    kw = w.reshape(7, 21, w.shape[-1])
+    out = torch.zeros((plan.k_pad // plan.k_per_ky + 1, plan.k_per_ky,
+                       w.shape[-1]), dtype=w.dtype, device=w.device)
+    out[:7, :21] = kw
+    return out.reshape(-1, w.shape[-1])[:plan.k_pad]
 
 
 def out_size(n: int) -> tuple[int, int]:
@@ -55,7 +116,9 @@ def stem(images: torch.Tensor, packed: dict) -> torch.Tensor:
     check(aff, "aff", (2, 64), device=images.device)
     Hc, Hp = out_size(H)
     Wc, Wp = out_size(W)
+    plan = stem_plan(N, H, W, sm_count(images.device))
     out = torch.empty((N, Hp, Wp, 64), dtype=torch.bfloat16,
                       device=images.device)
-    STEM(ptr(images), ptr(w), ptr(aff), ptr(out), N, H, W, Hc, Wc, Hp, Wp)
+    STEM(ptr(images), ptr(w), ptr(aff), ptr(out), N, H, W, Hc, Wc, Hp, Wp,
+         plan.tph, plan.tpw, plan.ctas)
     return out

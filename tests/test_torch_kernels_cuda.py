@@ -2,9 +2,11 @@
 shapes chip_smoke.py does not reach: 17 joints, 16- and 32-voxel cubes,
 dead and unmatched persons, batches of two, odd pyramid widths, ragged
 stem and deconv tiles, a 2048-channel deconv input; for the bf16 conv
-kernel every op and width of P2PNet and the bottleneck stage at ragged
-tiles, C2CNet at Z = 8 and 12 and column counts that are no multiple of 8,
-and the `fuse_p2p` path.
+kernels every op and width of P2PNet and the bottleneck stage at ragged
+tiles, on both routes (conv_wgmma: Cin 16..256, N 16..256, 1x1 and 3x3,
+every residual and output type, a level with fewer tiles than SMs), C2CNet
+at Z = 8 and 12 and column counts that are no multiple of 8, and the
+`fuse_p2p` path.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -187,7 +189,11 @@ def _bn_aff(rng, f, dev):
                            .astype(np.float32), device=dev)
 
 
-@pytest.mark.parametrize("N,H,W", [(2, 100, 90), (1, 37, 61), (3, 64, 64)])
+@pytest.mark.parametrize("N,H,W", [(2, 100, 90), (1, 37, 61), (3, 64, 64),
+                                   # 8 x 16 pooled tiles: ragged in both
+                                   # directions, one tile, a 1-pixel row
+                                   (1, 70, 130), (2, 9, 9), (1, 257, 95),
+                                   (1, 3, 200)])
 def test_stem_kernel(dev, N, H, W):
     """Ragged pooled tiles in both directions, and odd conv maps whose far
     pool windows hang over the edge."""
@@ -254,8 +260,10 @@ def test_wrappers_reject_bad_cuda_input(dev):
 
 # kernels the default heatmap path does not launch: the backbone's, the
 # fuse_p2p path's and the bottleneck stage (on no model path)
-_FUSE_ONLY = ("p2pnet.conv", "p2pnet.pool", "c2cnet")
-_OFF_HEATMAP_PATH = ("stem", "deconv_stage", "bottleneck_stage") + _FUSE_ONLY
+_FUSE_ONLY = ("p2pnet.conv.wgmma", "p2pnet.conv.wmma", "p2pnet.pool",
+              "c2cnet")
+_STAGE = ("bottleneck_stage.wgmma", "bottleneck_stage.wmma")
+_OFF_HEATMAP_PATH = ("stem", "deconv_stage") + _STAGE + _FUSE_ONLY
 
 
 def test_predictor_cuda_matches_cpu(dev):
@@ -311,7 +319,7 @@ def test_image_predictor_cuda_matches_cpu(dev):
     reset_launches()
     got = pred(images)
     counts = {n: k.launches for n, k in all_kernels().items()}
-    off = {n: counts.pop(n) for n in _FUSE_ONLY + ("bottleneck_stage",)}
+    off = {n: counts.pop(n) for n in _FUSE_ONLY + _STAGE}
     assert all(c > 0 for c in counts.values()), counts
     assert all(c == 0 for c in off.values()), off
     cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu",
@@ -334,30 +342,45 @@ def _bf16_layer(rng, taps, cin, f, dev, up=False):
             "aff": _bn_aff(rng, f, dev)}
 
 
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
 @pytest.mark.parametrize("N,H,W,cin,f,taps,xdt,res,out", [
-    (3, 64, 64, 15, 16, 49, torch.float32, None, torch.bfloat16),  # front
-    (2, 17, 23, 16, 32, 9, torch.bfloat16, None, torch.bfloat16),
-    (2, 17, 23, 16, 32, 1, torch.bfloat16, None, torch.float32),   # proj
-    (1, 33, 30, 32, 32, 9, torch.bfloat16, torch.bfloat16,
-     torch.bfloat16),                                              # join
-    (2, 9, 11, 64, 128, 9, torch.bfloat16, torch.float32,
-     torch.bfloat16),
-    (1, 20, 37, 32, 15, 1, torch.bfloat16, None, torch.float32),   # output
-    (1, 19, 37, 256, 64, 1, torch.bfloat16, None, torch.bfloat16),
-    (1, 19, 37, 64, 256, 1, torch.bfloat16, torch.bfloat16,
-     torch.bfloat16),                                              # conv3
-    (1, 8, 8, 24, 40, 9, torch.bfloat16, None, torch.bfloat16),    # odd C
+    (3, 64, 64, 15, 16, 49, _F32, None, _BF),              # front (wmma)
+    (2, 17, 23, 16, 32, 9, _BF, None, _BF),
+    (2, 17, 23, 16, 32, 1, _BF, None, _F32),               # proj
+    (1, 33, 30, 32, 32, 9, _BF, _BF, _BF),                 # join
+    (2, 9, 11, 64, 128, 9, _BF, _F32, _BF),
+    (1, 20, 37, 32, 15, 1, _BF, None, _F32),               # output (wmma)
+    (1, 19, 37, 256, 64, 1, _BF, None, _BF),
+    (1, 19, 37, 64, 256, 1, _BF, _BF, _BF),                # conv3
+    (1, 8, 8, 24, 40, 9, _BF, None, _BF),                  # odd C (wmma)
+    # conv_wgmma at every K block width (Cin 16, 32, 64..) and N tile
+    # (16..256), ragged patches, every residual and output type
+    (2, 16, 16, 16, 16, 9, _BF, None, _BF),
+    (1, 19, 21, 16, 64, 1, _BF, _F32, _BF),
+    (2, 13, 40, 32, 128, 9, _BF, _BF, _F32),
+    (1, 24, 9, 64, 32, 9, _BF, _F32, _BF),
+    (1, 11, 70, 128, 256, 9, _BF, None, _F32),             # two f32 halves
+    (2, 30, 33, 256, 256, 1, _BF, _BF, _BF),
+    (1, 7, 5, 256, 16, 1, _BF, _F32, _F32),                # 8 x 16 patch
+    (1, 20, 20, 32, 32, 9, _F32, None, _BF),               # x rounded once
+    (30, 16, 16, 128, 128, 9, _BF, _F32, _BF),             # 60 tiles < SMs
+    (5, 128, 240, 64, 256, 1, _BF, _BF, _BF),              # layer1's widths
 ])
 def test_conv_bf16_kernel(dev, N, H, W, cin, f, taps, xdt, res, out):
-    """Every conv of P2PNet and the bottleneck stage, at ragged M tiles:
-    one bf16 ulp (float32 outputs: their float32 sums in another order)."""
+    """Every conv of P2PNet and the bottleneck stage, at ragged M tiles, on
+    the route conv_plan gives it: one bf16 ulp (float32 outputs: their
+    float32 sums in another order)."""
     rng = np.random.RandomState(H * W + f)
     x = torch.as_tensor(rng.randn(N, H, W, cin).astype(np.float32),
                         device=dev).to(xdt)
     layer = _bf16_layer(rng, taps, cin, f, dev)
     r = None if res is None else torch.as_tensor(
         rng.randn(N, H, W, f).astype(np.float32), device=dev).to(res)
-    ops = kcv.make_ops(kcv.conv_kernel("test.conv"))
+    kern = kcv.conv_kernel("test.conv")
+    ops = kcv.make_ops(kern)
+    route = kcv.conv_plan(N, H, W, cin, f, int(np.sqrt(taps)), 0).route
     for relu in (False, True):
         got = ops.conv(x, layer, res=r, relu=relu, out_dtype=out)
         ref = kcv.conv_plain(x, layer, res=r, relu=relu, out_dtype=out)
@@ -368,11 +391,16 @@ def test_conv_bf16_kernel(dev, N, H, W, cin, f, taps, xdt, res, out):
                                        atol=1e-5 * scale)
         else:
             _assert_within_one_bf16_ulp(got, ref)
+    assert getattr(kern, route).launches == 2 and kern.launches == 2
 
 
 @pytest.mark.parametrize("N,H,W,cin,f", [(3, 8, 8, 128, 64),
                                          (2, 9, 13, 64, 32),
-                                         (1, 5, 7, 24, 16)])
+                                         (1, 5, 7, 24, 16),
+                                         # conv_wgmma, 4 F = 256, 128, 64
+                                         (30, 16, 16, 128, 64),
+                                         (1, 3, 37, 256, 32),
+                                         (2, 5, 9, 16, 16)])
 def test_upconv_and_pool_bf16_kernels(dev, N, H, W, cin, f):
     rng = np.random.RandomState(cin + W)
     x = torch.as_tensor(rng.randn(N, H, W, cin).astype(np.float32),
@@ -380,10 +408,12 @@ def test_upconv_and_pool_bf16_kernels(dev, N, H, W, cin, f):
     layer = _bf16_layer(rng, 1, cin, f, dev, up=True)
     skip = torch.as_tensor(rng.randn(N, 2 * H, 2 * W, f).astype(np.float32),
                            device=dev).to(torch.bfloat16)
-    ops = kcv.make_ops(kcv.conv_kernel("test.conv"),
-                       kcv.pool_kernel("test.pool"))
+    kern = kcv.conv_kernel("test.conv")
+    ops = kcv.make_ops(kern, kcv.pool_kernel("test.pool"))
     _assert_within_one_bf16_ulp(ops.upconv(x, layer, skip),
                                 kcv.upconv_plain(x, layer, skip))
+    route = kcv.conv_plan(N, H, W, cin, f, 1, 1).route
+    assert getattr(kern, route).launches == 1
     x2 = x[:, :H // 2 * 2, :W // 2 * 2].contiguous()
     assert torch.equal(ops.pool(x2), kcv.pool_plain(x2))
 
