@@ -14,7 +14,12 @@ non-zero:
    against its plain PyTorch version on the card, and times kernel, plain
    version and, where one exists, a library call (CUDA events behind a
    ~1 ms spin of the card, so device time only; warm-up excluded, median;
-   whole_sample also with its GB/s and host enqueue time); then the same for the `fuse_p2p` kernels, P2PNet on K2's planes
+   whole_sample also with its GB/s and host enqueue time; CenterNet with
+   its launches per call, its 16 stages each launched alone and its host
+   enqueue time, beside the cuDNN CenterNet module timed in the same run;
+   person_planes with its layout and planes kernels timed apart, the
+   planes kernel's gathered bytes and rate, and its time on frame 0's own
+   proposals); then the same for the `fuse_p2p` kernels, P2PNet on K2's planes
    and C2CNet on frame 0's z-columns, for the backbone's stem (5 images of
    512x960) and its three deconv stages (each with its tiling plan and
    host enqueue time), and for the bottleneck stage on the seeded
@@ -64,8 +69,11 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12           # H100 SXM float32 outside the tensor cores
 PEAK_BF16 = 989e12          # H100 SXM bf16 on the tensor cores, dense
 FRAMES = 12
-# ~1 ms of the card's clock: longer than any one wrapper's host enqueue
+# ~1 ms of the card's clock: longer than most wrappers' host enqueue
 SPIN_CYCLES = 2_000_000
+# ~5 ms, for calls whose host enqueue nears 1 ms (person_planes' wrapper
+# with its bounds)
+LONG_SPIN = 10_000_000
 WARMUP_FRAMES = 2
 # The seeded random weights below give detection confidences whose scale
 # has nothing to do with a trained model's (0.294 .. 0.315 on frame 0,
@@ -220,13 +228,14 @@ def bf16_close(got, ref) -> tuple[float, float]:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3,
-            with_enqueue: bool = False) -> float:
+            with_enqueue: bool = False, spin: int = SPIN_CYCLES) -> float:
     """Median of per-call CUDA-event times, warm-up excluded. Before each
-    call the card spins for SPIN_CYCLES (torch.cuda._sleep), so that the
+    call the card spins for `spin` cycles (torch.cuda._sleep), so that the
     call is enqueued behind the spin and the events time the device's work
-    alone. With `with_enqueue` (the method of the port's earlier records)
-    the card is idle when the first event is recorded, and the host's time
-    to enqueue the call counts as well."""
+    alone (a call whose host enqueue takes longer than the spin needs a
+    longer one). With `with_enqueue` (the method of the port's earlier
+    records) the card is idle when the first event is recorded, and the
+    host's time to enqueue the call counts as well."""
     import torch
 
     for _ in range(warmup):
@@ -237,7 +246,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3,
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         if not with_enqueue:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin)
         a.record()
         fn()
         b.record()
@@ -317,7 +326,6 @@ def main() -> int:
     from fvp_torch.models.faster_voxelpose import FasterVoxelPose
     from fvp_torch.models.resnet import PoseResNet, seeded_state_dict
     from fvp_torch.ops.kernels import _build
-    from fvp_torch.ops.kernels import centernet as kcn
     from fvp_torch.ops.kernels import sampler as ksamp
     from fvp_torch.ops.kernels import softargmax as ksa
     from fvp_torch.ops.kernels import weightnet as kwn
@@ -367,19 +375,6 @@ def main() -> int:
     n = cfg.ind_voxels_per_axis[0]
     rows = {}
 
-    def report(name, source, replaces, err, tol, ms, plain_ms, lib_ms,
-               bnd):
-        log(f"{name}: max_abs_err={err:.3e} tol={tol:.1e} kernel_ms={ms:.4f}"
-            f" plain_ms={plain_ms:.4f} library_ms={lib_ms} bound_ms="
-            f"{bnd[0]:.4f} ({bnd[1]})")
-        if not err <= tol:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version: {err} > {tol}")
-        rows[name] = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "max_abs_err": err, "tol": tol,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                      "bound_by": bnd[1], "library_ms": lib_ms}
-
     with torch.inference_mode():
         # K1 whole_sample
         vol_k = ksamp.whole_sample(hm, rc, cfg)
@@ -392,7 +387,7 @@ def main() -> int:
                             rc.whole_sample_px[:, 1] / hm1 * 2 - 1],
                            dim=-1)[:, None]                 # (V, 1, N, 2)
         hm_v = hm[0].contiguous()
-        report("whole_sample", "fvp_torch/csrc/whole_sample.cu",
+        report(rows, "whole_sample", "fvp_torch/csrc/whole_sample.cu",
                "fvp_tpu/ops/pallas/sampler.py:483", err, 1e-5,
                time_ms(lambda: ksamp.whole_sample(hm, rc, cfg)),
                time_ms(lambda: ksamp.whole_sample_plain(hm, rc, cfg), 5),
@@ -412,53 +407,11 @@ def main() -> int:
             f"to enqueue one call {ws['host_enqueue_ms']:.4f} ms; timed with "
             f"the enqueue {ws['ms_with_enqueue']:.4f} ms")
 
-        # K3 centernet
-        bev = vol_p.amax(dim=3).contiguous()
-        hm_k, size_k = kcn.centernet_forward(packed["center_net"], bev)
-        hm_p, size_p = kcn.centernet_plain(packed["center_net"], bev)
-        torch.cuda.synchronize()
-        scale = float(max(hm_p.abs().max(), size_p.abs().max()))
-        err = float(max((hm_k - hm_p).abs().max(),
-                        (size_k - size_p).abs().max()))
-        cn_w = list(_leaves(packed["center_net"]))
-        report("centernet", "fvp_torch/csrc/centernet.cu",
-               "fvp_tpu/ops/pallas/hourglass.py:386", err,
-               1e-4 * max(scale, 1.0),
-               time_ms(lambda: kcn.centernet_forward(packed["center_net"],
-                                                     bev)),
-               time_ms(lambda: kcn.centernet_plain(packed["center_net"],
-                                                   bev)),
-               time_ms(lambda: model.pose_net.center_net(vol_p)),
-               bound(nbytes(bev, hm_k, size_k, *cn_w),
-                     conv_flops(packed["center_net"], bev.shape[1],
-                                bev.shape[2])))
+        # K3 centernet: one persistent launch walking the plan's stages
+        centernet_kernel(packed["center_net"], vol_p, model, rows)
 
         # K2 person_planes: 10 people, all alive, full cubes
-        prs = np.random.RandomState(1)
-        centers = torch.as_tensor(np.stack([
-            prs.uniform(-3000, 3000, 10), prs.uniform(-3500, 2500, 10),
-            prs.uniform(700, 1100, 10)], axis=1)[None].astype(np.float32),
-            device=dev)
-        bbox = torch.ones((1, 10, 2), device=dev)
-        mask = torch.ones((1, 10), dtype=torch.bool, device=dev)
-        planes_k, _ = ksamp.person_planes(hm, rc, cfg, centers, bbox, mask)
-        corner, start, end, _ = ksamp.person_bounds(centers, bbox, mask, cfg)
-        planes_p = ksamp.person_planes_plain(hm, rc, cfg, corner, start, end)
-        torch.cuda.synchronize()
-        err = float((planes_k - planes_p).abs().max())
-        voxels = float(torch.prod((end - start).clamp(min=0).double(),
-                                  dim=1).sum())
-        assert voxels > 0.9 * 10 * n ** 3, voxels    # full work
-        report("person_planes", "fvp_torch/csrc/person_planes.cu",
-               "fvp_tpu/ops/pallas/sampler.py:556 + "
-               "fvp_tpu/ops/pallas/collapse.py:90", err, 1e-4,
-               time_ms(lambda: ksamp.person_planes(hm, rc, cfg, centers,
-                                                   bbox, mask)),
-               time_ms(lambda: ksamp.person_planes_plain(
-                   hm, rc, cfg, corner, start, end), 3, 1),
-               None,
-               bound(nbytes(hm, rc.cam_params, corner, start, end, planes_k),
-                     voxels * V * (45.0 + J * 8.0) + voxels * J * 5.0))
+        planes_k = person_planes_kernel(pred, hm, rows)
 
         # K4 soft_argmax on P2PNet's output of those planes
         feats = model.joint_net.conv_net(planes_k.reshape(3 * 10, n, n, J))
@@ -467,7 +420,7 @@ def main() -> int:
         c_p, p_p = ksa.soft_argmax_plain(fl, rc.center_grid, cfg.beta)
         torch.cuda.synchronize()
         err = float(max((c_k - c_p).abs().max(), (p_k - p_p).abs().max()))
-        report("soft_argmax", "fvp_torch/csrc/softargmax.cu",
+        report(rows, "soft_argmax", "fvp_torch/csrc/softargmax.cu",
                "fvp_tpu/ops/pallas/softargmax.py:49", err, 1e-2,
                time_ms(lambda: ksa.soft_argmax(fl, rc.center_grid,
                                                cfg.beta)),
@@ -487,7 +440,7 @@ def main() -> int:
         C = w_k.shape[-1]
         wconv = packed["weight_net"]["w"].t().reshape(C, 1, 3, 3).contiguous()
         x1 = feats.permute(0, 3, 1, 2).reshape(Nn * J, 1, A, Bb).contiguous()
-        report("weightnet_pool", "fvp_torch/csrc/weightnet.cu",
+        report(rows, "weightnet_pool", "fvp_torch/csrc/weightnet.cu",
                "fvp_tpu/ops/pallas/weightnet.py:84", err,
                1e-4 * max(float(w_p.abs().max()), 1.0),
                time_ms(lambda: kwn.weightnet_pool(feats,
@@ -596,6 +549,143 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def report(rows, name, source, replaces, err, tol, ms, plain_ms, lib_ms,
+           bnd) -> None:
+    """Log and check one float32 kernel's comparison; its row."""
+    log(f"{name}: max_abs_err={err:.3e} tol={tol:.1e} kernel_ms={ms:.4f}"
+        f" plain_ms={plain_ms:.4f} library_ms={lib_ms} bound_ms="
+        f"{bnd[0]:.4f} ({bnd[1]})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: {err} > {tol}")
+    rows[name] = {"name": name, "route": "cuda", "source": source,
+                  "replaces": replaces, "max_abs_err": err, "tol": tol,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                  "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def centernet_kernel(pc, vol, model, rows) -> None:
+    """Phase 3 for K3 on the BEV map of frame 0's volume: the kernel against
+    its plain version within 1e-4 of the output scale; its launches per
+    call (the counter) and stages; each stage launched alone on the arena
+    of a full run (device time); the host's enqueue time; and the cuDNN
+    CenterNet module (float32, TF32 off) on the same volume as the
+    library yardstick, timed in the same run."""
+    import torch
+    from fvp_torch.ops.kernels import centernet as kcn
+
+    bev = vol.amax(dim=3).contiguous()
+    plan = kcn.centernet_plan(*bev.shape)
+    before = kcn.CENTERNET.launches
+    hm_k, size_k = kcn.centernet_forward(pc, bev)
+    per_call = kcn.CENTERNET.launches - before
+    hm_p, size_p = kcn.centernet_plain(pc, bev)
+    torch.cuda.synchronize()
+    scale = float(max(hm_p.abs().max(), size_p.abs().max()))
+    err = float(max((hm_k - hm_p).abs().max(), (size_k - size_p).abs().max()))
+    report(rows, "centernet", "fvp_torch/csrc/centernet.cu",
+           "fvp_tpu/ops/pallas/hourglass.py:386", err,
+           1e-4 * max(scale, 1.0),
+           time_ms(lambda: kcn.centernet_forward(pc, bev)),
+           time_ms(lambda: kcn.centernet_plain(pc, bev)),
+           time_ms(lambda: model.pose_net.center_net(vol)),
+           bound(nbytes(bev, hm_k, size_k, pc["flat"]),
+                 conv_flops(pc, bev.shape[1], bev.shape[2])))
+    row = rows["centernet"]
+    arena = torch.empty(plan.arena_floats, device=bev.device)
+    kcn.launch(pc, bev, arena)
+    stage_ms = [time_ms(lambda s=s: kcn.launch(pc, bev, arena, s, s + 1))
+                for s in range(len(plan.stages))]
+    row.update(launches_per_call=per_call, stages=len(plan.stages),
+               stage_ms=stage_ms, smem_bytes=plan.smem_bytes,
+               host_enqueue_ms=host_ms(lambda: kcn.centernet_forward(pc,
+                                                                     bev)))
+    log(f"centernet {tuple(bev.shape)}: {per_call} launch per call, "
+        f"{len(plan.stages)} stages, {plan.smem_bytes} B of shared memory a "
+        f"block; each stage launched alone (device time):")
+    for s, (a, b) in enumerate(plan.stages):
+        log(f"  stage {s:2d} {stage_ms[s]:.4f} ms  " + "; ".join(
+            f"{op['name']} {op['h']}x{op['w']} {op['cin']}->{op['cout']} "
+            f"tile {op['th']}x{op['tw']}x{op['tn']} wk {op['wk']}, "
+            f"{op['tiles']} tiles" for op in plan.ops[a:b]))
+    log(f"centernet: kernel {row['ms']:.4f} ms against the cuDNN module's "
+        f"{row['library_ms']:.4f} ms in this run ("
+        f"{row['library_ms'] / row['ms']:.2f}x); the stages one by one "
+        f"{sum(stage_ms):.4f} ms; host_enqueue_ms {row['host_enqueue_ms']:.4f}"
+        f"; {conv_flops(pc, bev.shape[1], bev.shape[2]) / row['ms'] / 1e9:.2f}"
+        " TFLOP/s")
+    if per_call != 1:
+        raise AssertionError(f"centernet: {per_call} launches per call")
+
+
+def person_planes_kernel(pred, hm, rows):
+    """Phase 3 for K2 at 10 people with full 64^3 cubes (all alive, bbox
+    1): the kernel pair (layout + planes) against its plain version within
+    1e-4 and with identical zero patterns; the layout kernel and the planes
+    kernel each timed alone, the planes kernel's gathered bytes and rate;
+    then the call on frame 0's own proposals (the people that pass the
+    gate). Returns the planes."""
+    import torch
+    from fvp_torch.ops.kernels import sampler as ksamp
+
+    cfg, rc, dev = pred.cfg, pred.rc, pred.device
+    V, J = cfg.num_views, cfg.num_joints
+    n = cfg.ind_voxels_per_axis[0]
+    prs = np.random.RandomState(1)
+    centers = torch.as_tensor(np.stack([
+        prs.uniform(-3000, 3000, 10), prs.uniform(-3500, 2500, 10),
+        prs.uniform(700, 1100, 10)], axis=1)[None].astype(np.float32),
+        device=dev)
+    bbox = torch.ones((1, 10, 2), device=dev)
+    mask = torch.ones((1, 10), dtype=torch.bool, device=dev)
+    planes_k, _ = ksamp.person_planes(hm, rc, cfg, centers, bbox, mask)
+    corner, start, end, _ = ksamp.person_bounds(centers, bbox, mask, cfg)
+    planes_p = ksamp.person_planes_plain(hm, rc, cfg, corner, start, end)
+    torch.cuda.synchronize()
+    err = float((planes_k - planes_p).abs().max())
+    if not torch.equal(planes_k > 0, planes_p > 0):
+        raise AssertionError("person_planes: zero patterns differ")
+    voxels = float(torch.prod((end - start).clamp(min=0).double(),
+                              dim=1).sum())
+    assert voxels > 0.9 * 10 * n ** 3, voxels    # full work
+    report(rows, "person_planes", "fvp_torch/csrc/person_planes.cu",
+           "fvp_tpu/ops/pallas/sampler.py:556 + "
+           "fvp_tpu/ops/pallas/collapse.py:90", err, 1e-4,
+           time_ms(lambda: ksamp.person_planes(hm, rc, cfg, centers, bbox,
+                                               mask), spin=LONG_SPIN),
+           time_ms(lambda: ksamp.person_planes_plain(
+               hm, rc, cfg, corner, start, end), 3, 1),
+           None,
+           bound(nbytes(hm, rc.cam_params, corner, start, end, planes_k),
+                 voxels * V * (45.0 + J * 8.0) + voxels * J * 5.0))
+    row = rows["person_planes"]
+    hmp = ksamp.pixel_major(hm)
+    JP = hmp.shape[-1]
+    gathered = voxels * V * 4 * JP * 4.0
+    row.update(
+        layout_ms=time_ms(lambda: ksamp.pixel_major(hm)),
+        planes_ms=time_ms(lambda: ksamp.sample_planes(
+            hmp, rc, cfg, corner, start, end, J)),
+        gathered_bytes=gathered,
+        host_enqueue_ms=host_ms(lambda: ksamp.person_planes(
+            hm, rc, cfg, centers, bbox, mask)))
+    row["gathered_gb_per_s"] = gathered / row["planes_ms"] / 1e6
+    # frame 0's own proposals: the people that pass the gate
+    prop = pred.model.detect(hm, rc, pred.packed)["proposals"]
+    live = prop[..., 3] >= 0
+    row["frame_people"] = int(live.sum())
+    row["frame_ms"] = time_ms(lambda: ksamp.person_planes(
+        hm, rc, cfg, prop[..., 0:3], prop[..., 5:7], live), spin=LONG_SPIN)
+    log(f"person_planes: layout kernel {row['layout_ms']:.4f} ms "
+        f"({nbytes(hm, hmp) / row['layout_ms'] / 1e6:.1f} GB/s of "
+        f"{nbytes(hm, hmp) / 1e6:.1f} MB), planes kernel "
+        f"{row['planes_ms']:.4f} ms gathering {gathered / 1e9:.2f} GB "
+        f"({row['gathered_gb_per_s']:.1f} GB/s from L1/L2); host_enqueue_ms "
+        f"{row['host_enqueue_ms']:.4f}; on frame 0's proposals "
+        f"({row['frame_people']} pass the gate) {row['frame_ms']:.4f} ms")
+    return planes_k
 
 
 def backbone_kernels(pred, images_np, rows) -> None:
@@ -1038,13 +1128,16 @@ FUSE_PATH = HEATMAP_PATH + ("p2pnet", "c2cnet")
 
 def launch_counts(K) -> dict:
     """Launches per kernel of the JSON line: the wrappers' counters, with
-    CenterNet's and P2PNet's layer kernels summed."""
+    P2PNet's and the stage's routes summed (person_planes: its planes
+    kernel, whose layout kernel launches once beside each)."""
     c = {k.name: k.launches for k in K.all_kernels().values()}
+    if c["person_planes.layout"] != c["person_planes"]:
+        raise AssertionError("person_planes: layout and planes launches "
+                             "differ")
     return {"stem": c["stem"], "deconv_stage": c["deconv_stage"],
             "whole_sample": c["whole_sample"],
             "person_planes": c["person_planes"],
-            "centernet": c["centernet.conv"] + c["centernet.pool"]
-            + c["centernet.upconv"],
+            "centernet": c["centernet"],
             "soft_argmax": c["soft_argmax"],
             "weightnet_pool": c["weightnet_pool"],
             "p2pnet": c["p2pnet.conv.wgmma"] + c["p2pnet.conv.wmma"]

@@ -5,7 +5,11 @@ WeightNet's conv front end, with conv bias and BatchNorm running stats
 folded into a per-channel affine (scale a = gamma / sqrt(var + eps),
 shift = a * conv_bias + beta - mean * a), and kernels laid out for the NHWC
 kernels: (k, k, Cin, Cout) for a conv, (2, 2, Cin, Cout) for a transposed
-conv, (9, C) for WeightNet's single-input-channel conv. The backbone's
+conv, (9, C) for WeightNet's single-input-channel conv. CenterNet's
+packing also merges its heads' 3x3 convs into one 32 -> 64 conv ("heads")
+and puts every weight its kernel reads into one float32 buffer ("flat",
+each layer a view into it; ops/kernels/centernet.py::flatten_weights).
+The backbone's
 stem and deconv-head weights are packed in bf16, the type their kernels
 read (`pack_backbone`).
 
@@ -30,6 +34,7 @@ from torch import nn
 
 from fvp_torch.models.blocks import ResBlock, UpsampleBlock
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
+from fvp_torch.ops.kernels.centernet import flatten_weights
 from fvp_torch.ops.kernels.deconv_head import pack_deconv_weight
 
 _ENC = ("skip_res1", "encoder_res1", "skip_res2", "encoder_res2", "mid_res",
@@ -78,7 +83,12 @@ def pack_centernet(net: CenterNet) -> dict:
     }
     packed["enc"]["decoder_upsample2"] = pack_upsample(enc.decoder_upsample2)
     packed["enc"]["decoder_upsample1"] = pack_upsample(enc.decoder_upsample1)
-    return packed
+    # the kernel's merged heads: hm0 and size0 as one 32 -> 64 conv
+    packed["heads"] = {
+        key: torch.cat([packed["hm0"][key], packed["size0"][key]],
+                       dim=-1).contiguous()
+        for key in ("w", "scale", "shift")}
+    return flatten_weights(packed)
 
 
 @torch.no_grad()

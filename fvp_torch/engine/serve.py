@@ -65,6 +65,11 @@ class Predictor:
 
     def _setup(self, cfg, state_dict, rig, device, backbone_state_dict
                ) -> None:
+        if cfg.compute_dtype != "float32":
+            raise ValueError(
+                f"compute_dtype {cfg.compute_dtype!r}: fvp_torch serves "
+                "float32 only; bf16 serving comes with ROADMAP Queue 1 "
+                "item 2")
         self.cfg = cfg
         self.device = resolve_device(device)
         model = FasterVoxelPose(cfg)

@@ -22,19 +22,14 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "fvp_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the person sampler's projection feeds coordinates of up
-# to ~240 px into a bilinear gather, so it rounds every multiply and add on
-# its own, as its plain version does (no FMA contraction)
-SOURCE_FLAGS = {"person_planes.cu": ["--fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers, ints, floats, stream)
 SIGNATURES = {
     "fvp_whole_sample": [_P, _P, _P] + [_I] * 6 + [_P],
-    "fvp_person_planes": [_P] * 6 + [_I] * 7 + [_F] * 7 + [_P],
-    "fvp_conv_nhwc": [_P] * 6 + [_I] * 7 + [_P],
-    "fvp_maxpool2_nhwc": [_P, _P] + [_I] * 4 + [_P],
-    "fvp_upconv2_nhwc": [_P] * 6 + [_I] * 5 + [_P],
+    "fvp_person_layout": [_P, _P] + [_I] * 5 + [_P],
+    "fvp_person_planes": [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
+    "fvp_centernet": [_P] * 5 + [_I] * 5 + [_P],
     "fvp_soft_argmax": [_P] * 5 + [_I] * 4 + [_F, _P],
     "fvp_weightnet_pool": [_P] * 5 + [_I] * 5 + [_P],
     "fvp_stem": [_P] * 4 + [_I] * 10 + [_P],
@@ -63,7 +58,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(repr((FLAGS, SOURCE_FLAGS)).encode())
+    h = hashlib.sha256(repr(FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -83,7 +78,7 @@ def build() -> Path:
     for src in sources():
         obj = BUILD_DIR / (src.stem + ".o")
         procs.append((src, subprocess.Popen(
-            [nvcc, *FLAGS, *SOURCE_FLAGS.get(src.name, []), "-I", str(CSRC),
+            [nvcc, *FLAGS, "-I", str(CSRC),
              "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []

@@ -3,12 +3,17 @@
 with their plain versions.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+raises. K2 launches two kernels per frame: `person_layout` writes the
+heatmaps pixel-major, (B, V, H, W, JP) with the joints padded to a
+multiple of 4 with zeros (`pixel_major`), and `person_planes` samples and
+collapses every person's cube from that layout, one block per (person,
+16-x slab, TY-y rows) tile (`person_tiling`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from fvp_torch.config import FVPConfig
 from fvp_torch.geometry.grids import RigConstants
@@ -19,7 +24,9 @@ from fvp_torch.ops.sampling import (
 )
 
 WHOLE_SAMPLE = Kernel("whole_sample", "fvp_whole_sample")
+PERSON_LAYOUT = Kernel("person_planes.layout", "fvp_person_layout")
 PERSON_PLANES = Kernel("person_planes", "fvp_person_planes")
+TILE_X = 16              # x values a thread of person_planes loops over
 
 
 # --------------------------------------------------------------------------
@@ -102,6 +109,39 @@ def person_planes_plain(heatmaps: torch.Tensor, rc: RigConstants,
     return planes
 
 
+def padded_joints(J: int) -> int:
+    return (J + 3) // 4 * 4
+
+
+def pixel_major_plain(heatmaps: torch.Tensor) -> torch.Tensor:
+    """(B, V, J, H, W) -> (B, V, H, W, JP), JP = J rounded up to 4, the
+    padding zero: the layout K2 gathers from."""
+    J = heatmaps.shape[2]
+    hmp = heatmaps.permute(0, 1, 3, 4, 2)
+    return F.pad(hmp, (0, padded_joints(J) - J)).contiguous()
+
+
+def pixel_major(heatmaps: torch.Tensor) -> torch.Tensor:
+    """pixel_major_plain, by the layout kernel for a CUDA tensor."""
+    if not heatmaps.is_cuda:
+        return pixel_major_plain(heatmaps)
+    B, V, J, H, W = heatmaps.shape
+    check(heatmaps, "heatmaps")
+    JP = padded_joints(J)
+    out = torch.empty((B, V, H, W, JP), dtype=torch.float32,
+                      device=heatmaps.device)
+    PERSON_LAYOUT(ptr(heatmaps), ptr(out), B * V, J, H, W, JP)
+    return out
+
+
+def person_tiling(n: int) -> tuple[int, int]:
+    """(TY, blocks) of K2 for n^3 cubes: a block is n z-threads x TY y-rows
+    (at most 512 threads) looping over TILE_X x values; blocks per person
+    (n / TILE_X) x (n / TY)."""
+    ty = min(512 // n, n)
+    return ty, (n // TILE_X) * (n // ty)
+
+
 def person_planes(heatmaps: torch.Tensor, rc: RigConstants, cfg: FVPConfig,
                   centers_mm: torch.Tensor, bbox: torch.Tensor,
                   person_mask: torch.Tensor):
@@ -128,9 +168,23 @@ def person_planes(heatmaps: torch.Tensor, rc: RigConstants, cfg: FVPConfig,
     corner, start, end = (t.contiguous() for t in (corner, start, end))
     for t, name in ((corner, "corner"), (start, "start"), (end, "end")):
         check(t, name, (P, 3), dtype=torch.int32, device=heatmaps.device)
+    return sample_planes(pixel_major(heatmaps), rc, cfg, corner, start,
+                         end, J), offsets
+
+
+def sample_planes(hmp: torch.Tensor, rc: RigConstants, cfg: FVPConfig,
+                  corner: torch.Tensor, start: torch.Tensor,
+                  end: torch.Tensor, J: int) -> torch.Tensor:
+    """The person_planes kernel alone on pixel-major heatmaps hmp (B, V, H,
+    W, JP) (from `pixel_major`) and checked person bounds: planes (3, P,
+    n, n, J)."""
+    B, V, H, W, _ = hmp.shape
+    P = corner.shape[0]
+    n = cfg.ind_voxels_per_axis[0]
+    check(hmp, "hmp", (B, V, H, W, padded_joints(J)))
     planes = torch.zeros((3, P, n, n, J), dtype=torch.float32,
-                         device=heatmaps.device)
-    PERSON_PLANES(ptr(heatmaps), ptr(rc.cam_params), ptr(corner), ptr(start),
-                  ptr(end), ptr(planes), V, J, H, W, n, P // B, P,
-                  *person_geometry(cfg))
-    return planes, offsets
+                         device=hmp.device)
+    PERSON_PLANES(ptr(hmp), ptr(rc.cam_params), ptr(corner), ptr(start),
+                  ptr(end), ptr(planes), V, J, H, W, n, person_tiling(n)[0],
+                  P // B, P, *person_geometry(cfg))
+    return planes

@@ -19,6 +19,8 @@ intermediate tensors.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -68,19 +70,30 @@ def project_whole(heatmaps: torch.Tensor, rc: RigConstants,
     return volume.reshape(heatmaps.shape[1], nx, ny, nz).permute(1, 2, 3, 0)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_constants(cfg: FVPConfig, device: torch.device) -> dict:
+    """The space's sizes as tensors on `device`, made once: a tensor made
+    from host values per call would copy (and wait for the stream) every
+    frame."""
+    def t(v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    return {"space": t(cfg.space_size), "center": t(cfg.space_center),
+            "ind": t(cfg.ind_space_size),
+            "fine": t(cfg.fine_voxels_per_axis),
+            "ind_vox": t(cfg.ind_voxels_per_axis, torch.int32),
+            "fine_vox": t(cfg.fine_voxels_per_axis, torch.int32),
+            "ind_xy": t(cfg.ind_voxels_per_axis[:2])}
+
+
 def snap_centers(centers_mm: torch.Tensor, cfg: FVPConfig):
     """Snap proposal centers (P, 3) mm to fine-grid corner indices.
 
     Returns (corner (P, 3) int32, offset (P, 3) float32); `offset` turns
     cube-local soft-argmax coords into world mm.
     """
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=centers_mm.device)
-
-    space = f32(cfg.space_size)
-    center = f32(cfg.space_center)
-    ind = f32(cfg.ind_space_size)
-    fine = f32(cfg.fine_voxels_per_axis)
+    c = _grid_constants(cfg, centers_mm.device)
+    space, center, ind, fine = c["space"], c["center"], c["ind"], c["fine"]
     scale = (fine - 1.0) / space
     bias = -ind / 2.0 / space * (fine - 1.0) - scale * (center - space / 2.0)
     corner = torch.round(centers_mm * scale + bias).to(torch.int32)
@@ -94,13 +107,8 @@ def person_validity(corner: torch.Tensor, bbox: torch.Tensor,
     """Per-axis [start, end) fine-index bounds of each person's cube, and
     whether the crop is non-empty. corner (P, 3) int32, bbox (P, 2) ->
     (start (P, 3), end (P, 3), alive (P,))."""
-    dev = corner.device
-    ind_vox = torch.tensor(cfg.ind_voxels_per_axis, dtype=torch.int32,
-                           device=dev)
-    fine_vox = torch.tensor(cfg.fine_voxels_per_axis, dtype=torch.int32,
-                            device=dev)
-    ind_xy = torch.tensor(cfg.ind_voxels_per_axis[:2], dtype=torch.float32,
-                          device=dev)
+    c = _grid_constants(cfg, corner.device)
+    ind_vox, fine_vox, ind_xy = c["ind_vox"], c["fine_vox"], c["ind_xy"]
     mask_xy = ((1.0 - bbox) / 2.0 * (ind_xy - 1.0)).to(torch.int32)
     mask_xy = torch.clamp(mask_xy, min=0)
     mask = torch.cat([mask_xy, torch.zeros_like(mask_xy[:, :1])], dim=1)

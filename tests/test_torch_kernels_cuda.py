@@ -109,42 +109,104 @@ def test_whole_sample_kernel(dev, J, B, voxels, outside):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("J,n", [(15, 16), (17, 32), (15, 64)])
+def _crosses_edge(cfg, rc, corner):
+    """Whether some voxel of the cube at `corner` projects off the
+    heatmap in some view, and some on it."""
+    from fvp_torch.geometry.cameras import project_points_uv
+    from fvp_torch.geometry.grids import to_sample_px_uv
+    from fvp_torch.ops.sampling import cube_positions_uv
+
+    w, h = cfg.heatmap_size
+    px, py, pz = cube_positions_uv(corner, cfg)
+    rig, out = rc.rig, []
+    for v in range(cfg.num_views):
+        u, q = project_points_uv(px, py, pz, rig.R[v], rig.T[v], rig.f[v],
+                                 rig.c[v], rig.k[v], rig.p[v])
+        sx, sy = to_sample_px_uv(u, q, cfg, rc.hm_transform)
+        out.append(((sx < 0) | (sx > w - 1) | (sy < 0) | (sy > h - 1))
+                   .float().mean())
+    frac = torch.stack(out)
+    return bool((frac > 0).any() and (frac < 1).any())
+
+
+@pytest.mark.parametrize("J,n", [(15, 16), (17, 16), (15, 32), (17, 32),
+                                 (15, 64), (17, 64)])
 def test_person_planes_kernel(dev, J, n):
+    """A dead person (empty crop), an unmatched one (outside the mask) and
+    one whose footprint crosses the heatmap's edge, beside random ones."""
+    from fvp_torch.ops.kernels.sampler import PERSON_LAYOUT, PERSON_PLANES
+
     cfg = _cfg(J, n)
     rng, _, rc, hm = _inputs(cfg, dev)
     centers = np.stack([rng.uniform(-2500, 2500, (2, 3)),
                         rng.uniform(-3000, 2000, (2, 3)),
                         rng.uniform(400, 1400, (2, 3))], -1)
     centers[1, 2] = [9000.0, 9000.0, 800.0]              # dead: empty crop
+    centers[1, 0] = [0.0, 3900.0, 900.0]                 # across the edge
     bbox = rng.uniform(0.2, 1.0, (2, 3, 2))
+    bbox[1, 0] = 1.0
     mask = np.array([[True, True, False], [True, True, True]])
     args = [torch.as_tensor(a.astype(np.float32), device=dev)
             for a in (centers, bbox)]
     mask = torch.as_tensor(mask, device=dev)
+    before = (PERSON_LAYOUT.launches, PERSON_PLANES.launches)
     got, off = ksamp.person_planes(hm, rc, cfg, *args, mask)
+    assert (PERSON_LAYOUT.launches, PERSON_PLANES.launches) == \
+        (before[0] + 1, before[1] + 1)
     corner, start, end, off_r = ksamp.person_bounds(*args, mask, cfg)
+    assert _crosses_edge(cfg, rc, corner[3])
     ref = ksamp.person_planes_plain(hm, rc, cfg, corner, start, end)
-    # built without FMA contraction: the plain version's rounding, so only
-    # the atomics' (exact) max order differs
+    # the projection rounds as the plain version does, so the taps are the
+    # same; the bilinear sums may contract into FMAs
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(off, off_r)
+    assert torch.equal(got > 0, ref > 0)
     assert float(got[:, 2].abs().max()) == 0.0            # unmatched
     assert float(got[:, 5].abs().max()) == 0.0            # dead
-    assert float(got[:, 0].max()) > 0.0
+    assert float(got[:, 0].max()) > 0.0 and float(got[:, 3].max()) > 0.0
 
 
-@pytest.mark.parametrize("shape", [(2, 80, 80, 15), (1, 40, 24, 17)])
+@pytest.mark.parametrize("J", [15, 17])
+def test_person_layout_kernel(dev, J):
+    hm = torch.rand((2, 3, J, 31, 45), device=dev)
+    got = ksamp.pixel_major(hm)
+    assert torch.equal(got, ksamp.pixel_major_plain(hm))
+
+
+@pytest.mark.parametrize("shape", [(2, 80, 80, 15), (1, 40, 24, 17),
+                                   (1, 16, 16, 15), (3, 80, 80, 17)])
 def test_centernet_kernel(dev, shape):
+    """One launch per call; ragged and small levels ((1, 40, 24, 17): a
+    10 x 6 deepest level; (1, 16, 16, 15): stages of fewer tiles than
+    SMs), batches of 2 and 3."""
     J = shape[-1]
     packed = pack_model(_model(J, dev))["center_net"]
     bev = torch.rand(shape, device=dev)
+    before = kcn.CENTERNET.launches
     got = kcn.centernet_forward(packed, bev)
+    assert kcn.CENTERNET.launches == before + 1
     ref = kcn.centernet_plain(packed, bev)
     for g, r in zip(got, ref):
         # float32 convs summed in another order than cuDNN's
+        assert g.shape == r.shape and torch.isfinite(g).all()
         scale = max(float(r.abs().max()), 1.0)
         torch.testing.assert_close(g, r, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 24, 15), (2, 80, 80, 15)])
+def test_centernet_stages_one_by_one(dev, shape):
+    """The plan's stages launched one by one (plain launches, no grid
+    barrier) give the single cooperative launch's outputs, bit for bit:
+    every tile is computed by one block in a fixed order either way."""
+    packed = pack_model(_model(shape[-1], dev))["center_net"]
+    bev = torch.rand(shape, device=dev)
+    plan = kcn.centernet_plan(*shape)
+    ref = kcn.centernet_forward(packed, bev)
+    arena = torch.empty(plan.arena_floats, device=dev)
+    for s in range(len(plan.stages)):
+        kcn.launch(packed, bev, arena, s, s + 1)
+    for g, r in zip(kcn.outputs(plan, arena), ref):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("J,N", [(15, 256), (17, 4096)])
