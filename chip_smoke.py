@@ -27,6 +27,9 @@ non-zero:
    launch by launch, each launch also timed alone and printed with its
    route, tiling plan, shape and bytes; C2CNet, one launch, as a whole);
    the stem's plan and GB/s, and the wrappers' host enqueue times;
+   C2CNet's plan (cluster size, clusters, ring depth, barriers), one launch
+   per call, and each cluster size held and timed; weightnet_pool's plan,
+   its GB/s of input and two calls bitwise equal;
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -451,6 +454,7 @@ def main() -> int:
                                                           padding=1)),
                bound(nbytes(feats, w_k, *_leaves(packed["weight_net"])),
                      Nn * J * A * Bb * C * (9 * 2.0 + 2) + Nn * J * C * 2))
+        weightnet_plan_line(feats, packed["weight_net"], w_k, rows)
 
         # the fuse_p2p kernels: P2PNet on K2's planes, C2CNet on frame 0's
         # z-columns
@@ -549,6 +553,29 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def weightnet_plan_line(feats, pw, first, rows) -> None:
+    """weightnet_pool's plan, its rate of input read, and a second call
+    bit for bit equal to the first (the mean's fixed order)."""
+    import torch
+    from fvp_torch.ops.kernels import weightnet as kwn
+
+    plan = kwn.weightnet_plan(*feats.shape)
+    again = kwn.weightnet_pool(feats, pw)
+    torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        raise AssertionError("weightnet_pool: two calls differ")
+    row = rows["weightnet_pool"]
+    row["gb_per_s"] = nbytes(feats) / row["ms"] / 1e6
+    row["plan"] = {k: v for k, v in plan._asdict().items()
+                   if k in ("rows", "bands", "joints", "reps", "threads",
+                            "smem")}
+    log(f"weightnet_pool plan: bands of {plan.rows} rows ({plan.bands} per "
+        f"map), {plan.joints} joints a block, {plan.blocks} blocks of "
+        f"{plan.threads} threads, {plan.smem} B shared; "
+        f"{row['gb_per_s']:.1f} GB/s of its {nbytes(feats) / 1e6:.1f} MB "
+        f"input; two calls bitwise equal")
 
 
 def report(rows, name, source, replaces, err, tol, ms, plain_ms, lib_ms,
@@ -976,12 +1003,47 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
     b = bound(nbytes(cols, got, pc["w_flat"], pc["aff_flat"]),
               c2c_flops(*cols.shape), PEAK_BF16)
     rows["c2cnet"].update(bound_ms=b[0], bound_by=b[1])
+    c2cnet_plans(pc, cols, ref, scale, rows["c2cnet"])
     for name in ("p2pnet", "c2cnet"):
         log(f"{name}: host_enqueue_ms (one call) "
             f"{rows[name]['host_enqueue_ms']:.4f}")
     log(f"c2cnet: kernel_ms={rows['c2cnet']['ms']:.4f} plain_ms="
         f"{rows['c2cnet']['plain_ms']:.4f} library_ms="
         f"{rows['c2cnet']['library_ms']:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+
+
+def c2cnet_plans(pc, cols, ref, scale, row) -> None:
+    """C2CNet's plan at the default cluster size, one launch per call, and
+    each cluster size held against the plain version and timed."""
+    import torch
+    from fvp_torch.ops.kernels import c2cnet as kc2c
+
+    plan = kc2c.c2cnet_plan(*cols.shape)
+    before = kc2c.C2C.launches
+    kc2c.c2cnet(pc, cols)
+    if kc2c.C2C.launches != before + 1:
+        raise AssertionError("c2cnet: not one launch per call")
+    log(f"c2cnet plan: cs {plan.cs}, {plan.clusters} cluster(s) of "
+        f"{plan.cols} columns, ring depth {plan.depth} x {plan.slot_bytes} "
+        f"B, {plan.barriers} cluster barriers, {plan.smem} B shared; 1 "
+        "launch per call")
+    row["ms_by_cs"] = {}
+    for cs in kc2c.CLUSTER_SIZES:
+        p = kc2c.c2cnet_plan(*cols.shape, cs)
+        got = kc2c.c2cnet(pc, cols, cs=cs)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not err <= NET_RTOL * scale:
+            raise AssertionError(f"c2cnet at cs {cs} disagrees with its "
+                                 "plain version")
+        ms = time_ms(lambda: kc2c.c2cnet(pc, cols, cs=cs))
+        row["ms_by_cs"][cs] = ms
+        log(f"  c2cnet cs {cs}: {p.clusters} cluster(s) of {p.cols} columns "
+            f"({p.clusters * cs} CTAs), ring depth {p.depth}, {p.smem} B "
+            f"shared: {ms:.4f} ms, max_abs_err {err:.3e}")
+    fastest = min(row["ms_by_cs"], key=row["ms_by_cs"].get)
+    log(f"c2cnet: fastest cs {fastest}; the plan's default "
+        f"{kc2c.DEFAULT_CS}")
 
 
 def stage_weights(pred):

@@ -3,228 +3,534 @@
 //
 // Replaces fvp_tpu/ops/pallas/hourglass.py::pallas_c2cnet (`_c2c_kernel`),
 // which runs the net for all columns in one grid step with the items on
-// the sublanes. The net does ~2.5e6 multiply-adds per column (5e7
-// operations for 10 columns at Z = 20) on 0.76 MB of bf16 weights: its time
-// is bound by launch and latency, not by operations or bytes, and its
-// yardstick is the ~25 launches of the cuDNN module. Design: one block of
-// 1024 threads per column. Every level's activations (at most Z x 32
-// values: 32 channels at Z, 64 at Z/2, 128 at Z/4) live in shared memory
-// as float32 holding the bf16-rounded values. Each layer's bf16 weights
-// (at most 96 KB) are first copied from L2 into shared memory with 16-byte
-// loads, so the multiply-adds read shared memory only: the activation value
-// is one broadcast per warp, the weights a thread's output channel on
-// consecutive addresses across the warp. A thread computes a whole output
-// (z, f), or, where a layer has fewer outputs than threads, a slice of its
-// input channels, the slices summed in a fixed order after a barrier.
+// the sublanes, so that each layer is one matrix product over all of them.
+// The net does ~2.4e6 multiply-adds per column on 0.76 MB of bf16 weights:
+// at B = 1 (10 columns) its time is bound by the chain of 23 dependent
+// layers, not by operations or bytes. Design (ops/kernels/c2cnet.py
+// documents the plan):
+// - each layer is one implicit GEMM over every column of a cluster on
+//   mma.sync m16n8k16 (bf16 operands, float32 sums): rows are (column,
+//   height), K is (tap, input channel) in k16 steps, the columns are the
+//   output channels (2F for an up-conv, column r F + f being output
+//   2z + r). Activations stay in shared memory as bf16 rows of (channels
+//   + 8) values with a zero halo row above and below each column, so a
+//   tap is a row offset and the A fragments are 32-bit loads without
+//   bank conflicts;
+// - a ResBlock's 1x1 projection shares its first conv's GEMM (its own
+//   accumulators on the centre tap, a float32 epilogue into P), and the
+//   2x2 max pool runs in the epilogue of the conv that feeds it (the row
+//   pair's values meet through one shuffle), so the net is 19 GEMM phases
+//   and the output conv;
+// - a cluster of cs CTAs (1, 2 or 4) splits each phase's column tiles
+//   (its rows where the tiles do not divide); every CTA holds all of the
+//   cluster's activations, writes its output slice into every CTA's copy
+//   (st.shared::cluster), then one cluster barrier ends the phase. The
+//   plan's default is a cluster of one CTA (at B = 1, five CTAs of two
+//   columns), faster than any split of a phase over a cluster;
+// - each CTA's slice of a phase's weights, pre-packed in the order of the
+//   B fragments (engine/packing.py::pack_c2cnet), arrives by bulk copy
+//   into a ring of 2-3 slots with the phase's affines, so the next phases'
+//   weights are in flight while this one computes and the epilogue reads
+//   shared memory only; a warp reads its B fragment as one 8-byte load
+//   per lane.
+// Each warp takes items of one m16 tile by two n8 tiles; each k16 step's
+// mma sums its 16 products into fresh accumulators, which float32 adds
+// bring into the item's sums in K order (so the mma do not wait on each
+// other), all steps unrolled for the phases' shapes (gemm_item). A
+// cluster of one CTA stores locally and ends a phase with a block barrier.
 //
 // Numerics (the TPU kernel's): the input rounds to bf16; the front conv and
 // each ResBlock's first conv round relu(aff(conv)); a projection skip stays
 // float32; the join relu(aff(conv) + skip) rounds; an up-conv rounds
 // relu(aff(.)), adds the bf16 skip and rounds again; the 1x1 output conv
-// adds its bias in float32.
-//
-// The layers are walked in the order of ops/kernels/c2cnet.py::layer_shapes
-// through two flat buffers: weights (taps, Cin, F) bf16 and affines (2, F)
-// float32 (scale, shift), one after the other.
+// adds its bias in float32. The affine and the skip add are the plain
+// version's separate float32 operations (no contraction into an FMA), so
+// only the order of the GEMM's sums differs from it.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 1024;
-constexpr int C0 = 32, C1 = 64, C2 = 128, CF = 16;  // models/blocks.py widths
+using namespace fvp;
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+// n8 tiles of an item (one m16 tile): two, their mma sharing each A
+// fragment (faster than one tile on 16 warps: tools/kernel_parts.py)
+constexpr int kItemTiles = 2;
+constexpr int kMaxPhases = 24, kNF = 26, kMaxCs = 4, kMaxDepth = 3;
+constexpr int kFrag = 256;               // bytes of one n8 x k16 B fragment
 
-struct Net {
-  const bf16* w;      // the next layer's weights in the flat buffer
-  const float* aff;   // and its affine
-  bf16* wsm;          // shared memory for one layer's weights
-  float* part;        // shared memory for split sums (kThreads floats)
+// the fields of a phase (ops/kernels/c2cnet.py::FIELDS, in its order)
+enum Field {
+  kKind, kIn, kInStride, kInRpc, kInBase, kZl, kTaps, kCsteps, kNcols,
+  kFo, kOut, kOutStride, kOutRpc, kRes, kResOff, kRelu, kPool, kPoolRpc,
+  kProj, kSplit, kW, kPW, kAff, kPAff, kP, kFieldCount
 };
+enum Kind { CONV = 0, UPCONV = 1, FINAL = 2 };
+enum Res { RES_NONE = 0, RES_BF16 = 1, RES_PROJ = 2 };
+static_assert(kFieldCount <= kNF, "table width");
 
-// copy n bf16 weights of the layer into shared memory
-__device__ void stage(bf16* dst, const bf16* src, int n) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && n % 8 == 0) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < n / 8; i += blockDim.x) d[i] = __ldg(s + i);
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// One layer, starting with a barrier (its input and its shared scratch are
-// then ready). A conv (up == false): out[z, f] = aff(sum_{t, c}
-// in[z + t - k/2, c] w[t, c, f]) (+ res[z, f]) (ReLU) (rounded to bf16),
-// `in` (Z, Cin), `out` and `res` (Z, F). An up-conv (k = 2, stride 2):
-// out[2z + r, f] = bf16(bf16(relu(aff(in[z] . w[r, :, f]))) + res[2z + r,
-// f]), `in` (Z, Cin), `out` and `res` (2Z, F).
-__device__ void layer(Net& net, const float* in, int Z, int Cin, int k,
-                      int F, bool up, float* out, const float* res, bool relu,
-                      bool rnd) {
-  __syncthreads();
-  stage(net.wsm, net.w, k * Cin * F);
-  __syncthreads();
-  const bf16* w = net.wsm;
-  const float* aff = net.aff;
-  const int n_out = (up ? 2 * Z : Z) * F;
-  // split the input channels over S threads where outputs are few; then
-  // n_out * S <= kThreads, the size of net.part
-  const int S = max(1, min(min((int)blockDim.x / n_out, Cin), 8));
-  const int pad = k / 2;
-  auto finish = [&](int o, float acc) {
-    const int f = o % F;
-    float v = acc * aff[f] + aff[F + f];
-    if (up) {
-      out[o] = round_bf16(round_bf16(fmaxf(v, 0.f)) + res[o]);
+// bulk copy of `bytes` (a multiple of 16) from global to this CTA's shared
+// memory, completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// no "memory" clobber: the epilogue's loads may move above these stores
+// (they read other buffers), and the cluster barrier's asm orders them
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// the column tiles [lo, hi) of this CTA (c2cnet.py::_slice)
+struct Slice {
+  int lo, hi;
+};
+__device__ __forceinline__ Slice slice_of(const int* ph, int rank, int cs) {
+  const int nt = ph[kNcols] / 8;
+  if (ph[kSplit]) return {0, nt};
+  return {rank * nt / cs, (rank + 1) * nt / cs};
+}
+
+// one thread: this CTA's weights of phase `ph` into a ring slot, then the
+// phase's affine (2, F) float32 and its projection's (so that the epilogue
+// reads them from shared memory)
+__device__ void issue(const int* ph, uint32_t slot, uint32_t bar,
+                      const unsigned char* wfrag, const float* aff, int rank,
+                      int cs) {
+  const Slice s = slice_of(ph, rank, cs);
+  const int ks = ph[kTaps] * ph[kCsteps];
+  const uint32_t b1 = (uint32_t)(s.hi - s.lo) * ks * kFrag;
+  const uint32_t b2 =
+      ph[kProj] ? (uint32_t)(s.hi - s.lo) * ph[kCsteps] * kFrag : 0u;
+  const uint32_t ba = 8u * ph[kFo];
+  mbar_expect_tx(bar, b1 + b2 + ba * (ph[kProj] ? 2 : 1));
+  bulk_load(slot, wfrag + ph[kW] + (size_t)s.lo * ks * kFrag, b1, bar);
+  if (b2)
+    bulk_load(slot + b1,
+              wfrag + ph[kPW] + (size_t)s.lo * ph[kCsteps] * kFrag, b2, bar);
+  bulk_load(slot + b1 + b2, aff + ph[kAff], ba, bar);
+  if (b2) bulk_load(slot + b1 + b2 + ba, aff + ph[kPAff], ba, bar);
+}
+
+// Where the epilogue writes: the cluster's shared windows of every CTA
+// (a plain shared store where the cluster is one CTA)
+struct Peers {
+  uint32_t base[kMaxCs];
+  int cs;
+  // a u32 (two bf16 values) at byte offset `off` of every CTA
+  __device__ __forceinline__ void put(unsigned char* sm, uint32_t off,
+                                      uint32_t v) const {
+    if (cs == 1) {
+      *reinterpret_cast<uint32_t*>(sm + off) = v;
       return;
     }
-    if (res) v += res[o];
-    if (relu) v = fmaxf(v, 0.f);
-    out[o] = rnd ? round_bf16(v) : v;
-  };
-  for (int item = threadIdx.x; item < n_out * S; item += blockDim.x) {
-    const int s = item / n_out, o = item - s * n_out;
-    const int zo = o / F, f = o - zo * F;
-    const int c0 = s * Cin / S, c1 = (s + 1) * Cin / S;
-    float acc = 0.f;
-    for (int t = 0; t < (up ? 1 : k); ++t) {
-      const int zz = up ? zo >> 1 : zo + t - pad;
-      const int tap = up ? zo & 1 : t;
-      if (zz < 0 || zz >= Z) continue;
-      const float* xr = in + zz * Cin;
-      const bf16* wr = w + tap * Cin * F + f;
-#pragma unroll 4
-      for (int c = c0; c < c1; ++c)
-        acc = fmaf(xr[c], __bfloat162float(wr[c * F]), acc);
-    }
-    if (S == 1)
-      finish(o, acc);
-    else
-      net.part[item] = acc;
+#pragma unroll
+    for (int q = 0; q < kMaxCs; ++q)
+      if (q < cs) st_cluster(base[q] + off, v);
   }
-  if (S > 1) {                          // S is the same for every thread
+};
+
+// the end of a phase: a block barrier where the cluster is one CTA (its
+// stores were local), else a cluster barrier (release / acquire)
+__device__ __forceinline__ void phase_sync(int cs) {
+  if (cs == 1)
     __syncthreads();
-    for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-      float acc = net.part[o];
-      for (int s = 1; s < S; ++s) acc += net.part[s * n_out + o];
-      finish(o, acc);
+  else
+    cluster_sync();
+}
+
+// rows of a level's buffer: (column, z) with one halo row on each side
+__device__ __forceinline__ int out_row(int n, int z, int rpc) {
+  return n * rpc + 1 + z;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D = A B over one k16 step into fresh accumulators, added to acc in
+// float32 (round to nearest): the steps' sums in K order, and the mma of
+// one step independent of the others'
+__device__ __forceinline__ void mma_add(float (&acc)[4],
+                                        const uint32_t (&a)[4], uint2 b) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(d, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// The GEMM of one item: the A rows of tap 0 at pa (row g) and pb (row
+// g + 8), the B fragments of its two n8 tiles at w0 and w1 (w1 == w0 where
+// the second tile is past the slice: computed, never stored), and, on the
+// centre tap of a phase with a projection, the projection's at q0, q1.
+// K in k16 steps (tap t, channels 16 kc), each step's mma into fresh
+// accumulators added to acc in order. TAPS, CS and PROJ as template
+// arguments unroll all steps, so every fragment load and mma can be
+// issued ahead of the adds that need it.
+template <int TAPS, int CS, bool PROJ>
+__device__ __forceinline__ void gemm_item(float (&acc)[2][4],
+                                          float (&pacc)[2][4], const bf16* pa,
+                                          const bf16* pb, int istr,
+                                          const uint2* w0, const uint2* w1,
+                                          const uint2* q0, const uint2* q1) {
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t)
+#pragma unroll
+    for (int kc = 0; kc < CS; ++kc) {
+      const int st = t * CS + kc;
+      const uint32_t a[4] = {ld32(pa + t * istr + 16 * kc),
+                             ld32(pb + t * istr + 16 * kc),
+                             ld32(pa + t * istr + 16 * kc + 8),
+                             ld32(pb + t * istr + 16 * kc + 8)};
+      mma_add(acc[0], a, w0[st * 32]);
+      mma_add(acc[1], a, w1[st * 32]);
+      if (PROJ && t == TAPS / 2) {
+        mma_add(pacc[0], a, q0[kc * 32]);
+        mma_add(pacc[1], a, q1[kc * 32]);
+      }
+    }
+}
+
+// the same for any taps and channel steps (a front with more than 32
+// joints), in the same order of sums
+__device__ void gemm_item_any(float (&acc)[2][4], float (&pacc)[2][4],
+                              const bf16* pa, const bf16* pb, int istr,
+                              const uint2* w0, const uint2* w1,
+                              const uint2* q0, const uint2* q1, int taps,
+                              int cs, bool proj) {
+  for (int t = 0; t < taps; ++t)
+    for (int kc = 0; kc < cs; ++kc) {
+      const int st = t * cs + kc;
+      const uint32_t a[4] = {ld32(pa + t * istr + 16 * kc),
+                             ld32(pb + t * istr + 16 * kc),
+                             ld32(pa + t * istr + 16 * kc + 8),
+                             ld32(pb + t * istr + 16 * kc + 8)};
+      mma_add(acc[0], a, w0[st * 32]);
+      mma_add(acc[1], a, w1[st * 32]);
+      if (proj && t == taps / 2) {
+        mma_add(pacc[0], a, q0[kc * 32]);
+        mma_add(pacc[1], a, q1[kc * 32]);
+      }
+    }
+}
+
+// One GEMM phase of this CTA: its items of one m16 tile x kItemTiles n8
+// tiles over its warps, then the epilogue of each item.
+__device__ void gemm_phase(const int* ph, unsigned char* sm,
+                           const unsigned char* wslot, const Peers& peers,
+                           int rank, int cs, int nh, int warp, int lane) {
+  const int zl = ph[kZl], M = nh * zl, mtiles = (M + 15) / 16;
+  const Slice sl = slice_of(ph, rank, cs);
+  const int nloc = sl.hi - sl.lo;
+  const int per_mt = (nloc + kItemTiles - 1) / kItemTiles;
+  const bool rows = ph[kSplit] != 0;
+  const int my_mt = rows ? (mtiles > rank ? (mtiles - rank + cs - 1) / cs : 0)
+                         : mtiles;
+  const int items = my_mt * per_mt;
+  const int taps = ph[kTaps], csteps = ph[kCsteps], ks = taps * csteps;
+  const bool proj = ph[kProj] != 0;
+  const int istr = ph[kInStride], irpc = ph[kInRpc], ibase = ph[kInBase];
+  const bf16* in = reinterpret_cast<const bf16*>(sm + ph[kIn]);
+  const uint2* wb = reinterpret_cast<const uint2*>(wslot);
+  const uint2* pw = reinterpret_cast<const uint2*>(wslot + nloc * ks * kFrag);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kind = ph[kKind], fo = ph[kFo];
+  const int ostr = ph[kOutStride], orpc = ph[kOutRpc];
+  const int res = ph[kRes], relu = ph[kRelu];
+  const int pool = ph[kPool], prpc = ph[kPoolRpc];
+  const int fs = nloc * 8;                 // the projection's slice width
+  float* P = reinterpret_cast<float*>(sm + ph[kP]);
+  // the affines, after the weights in the slot
+  const float* sc = reinterpret_cast<const float*>(
+      wslot + nloc * ks * kFrag + (proj ? nloc * csteps * kFrag : 0));
+  const float* psc = sc + 2 * fo;
+  const int key = (taps << 8) | (csteps << 1) | (proj ? 1 : 0);
+  const int fsh = __ffs(fo) - 1;           // F is a power of two
+
+  for (int it = warp; it < items; it += kWarps) {
+    const int mt = rows ? rank + cs * (it / per_mt) : it / per_mt;
+    const int j0 = kItemTiles * (it % per_mt);   // local n8 tile
+    const bool two = kItemTiles == 2 && j0 + 1 < nloc;
+    // rows 16 mt + g + 8 h of this lane (clamped to the last row where
+    // the tile runs past M: computed, never stored)
+    int mm[2], nn[2], zz[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mm[h] = 16 * mt + g + 8 * h;
+      const int mc = min(mm[h], M - 1);
+      nn[h] = mc / zl;
+      zz[h] = mc - nn[h] * zl;
+    }
+    const bf16* pa = in + (nn[0] * irpc + ibase + zz[0]) * istr + 2 * t4;
+    const bf16* pb = in + (nn[1] * irpc + ibase + zz[1]) * istr + 2 * t4;
+    const uint2* w0 = wb + j0 * ks * 32 + lane;
+    const uint2* w1 = two ? w0 + ks * 32 : w0;
+    const uint2* q0 = pw + j0 * csteps * 32 + lane;
+    const uint2* q1 = two ? q0 + csteps * 32 : q0;
+    float acc[2][4] = {}, pacc[2][4] = {};
+    switch (key) {
+#define FVP_GEMM(T, C, PR)                                                 \
+  case ((T) << 8) | ((C) << 1) | (PR):                                      \
+    gemm_item<T, C, (PR) != 0>(acc, pacc, pa, pb, istr, w0, w1, q0, q1); \
+    break;
+      FVP_GEMM(7, 1, 0)
+      FVP_GEMM(7, 2, 0)
+      FVP_GEMM(3, 1, 0)
+      FVP_GEMM(3, 1, 1)
+      FVP_GEMM(3, 2, 0)
+      FVP_GEMM(3, 2, 1)
+      FVP_GEMM(3, 4, 0)
+      FVP_GEMM(3, 4, 1)
+      FVP_GEMM(3, 8, 0)
+      FVP_GEMM(1, 4, 0)
+      FVP_GEMM(1, 8, 0)
+#undef FVP_GEMM
+      default:
+        gemm_item_any(acc, pacc, pa, pb, istr, w0, w1, q0, q1, taps, csteps,
+                      proj);
+    }
+
+    // epilogue: rows mm[h], columns 8 (lo + j0 + j) + 2 t4 + e; loads and
+    // shuffles on every lane, stores on the rows inside M
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && !two) break;             // warp-uniform
+      const int col = 8 * (sl.lo + j0 + j) + 2 * t4;
+      const int fcol = kind == UPCONV ? col & (fo - 1) : col;
+      const float s0 = sc[fcol], s1 = sc[fcol + 1];
+      const float h0 = sc[fo + fcol], h1 = sc[fo + fcol + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool valid = mm[h] < M;
+        const int n = nn[h], z = zz[h];
+        float v0 = __fadd_rn(__fmul_rn(acc[j][2 * h], s0), h0);
+        float v1 = __fadd_rn(__fmul_rn(acc[j][2 * h + 1], s1), h1);
+        if (kind == UPCONV) {                // warp-uniform
+          const int zo = 2 * z + (col >> fsh), row = out_row(n, zo, orpc);
+          const uint32_t s = *reinterpret_cast<const uint32_t*>(
+              sm + ph[kResOff] + 2 * (row * ostr + fcol));
+          const uint32_t y = pack2(
+              __fadd_rn(__bfloat162float(__float2bfloat16_rn(fmaxf(v0, 0.f))),
+                        bf_lo(s)),
+              __fadd_rn(__bfloat162float(__float2bfloat16_rn(fmaxf(v1, 0.f))),
+                        bf_hi(s)));
+          if (valid) {
+            peers.put(sm, ph[kOut] + 2 * (row * ostr + fcol), y);
+            if (zo == 0)
+              peers.put(sm, ph[kOut] + 2 * ((row - 1) * ostr + fcol), 0u);
+            if (zo == 2 * zl - 1)
+              peers.put(sm, ph[kOut] + 2 * ((row + 1) * ostr + fcol), 0u);
+          }
+          continue;
+        }
+        const int row = out_row(n, z, orpc);
+        if (res == RES_BF16) {               // warp-uniform
+          const uint32_t s = *reinterpret_cast<const uint32_t*>(
+              sm + ph[kResOff] + 2 * (row * ostr + col));
+          v0 = __fadd_rn(v0, bf_lo(s));
+          v1 = __fadd_rn(v1, bf_hi(s));
+        } else if (res == RES_PROJ) {
+          const float2 s = *reinterpret_cast<const float2*>(
+              P + min(mm[h], M - 1) * fs + col - 8 * sl.lo);
+          v0 = __fadd_rn(v0, s.x);
+          v1 = __fadd_rn(v1, s.y);
+        }
+        if (relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const uint32_t y = pack2(v0, v1);
+        if (valid) {
+          peers.put(sm, ph[kOut] + 2 * (row * ostr + col), y);
+          if (z == 0)
+            peers.put(sm, ph[kOut] + 2 * ((row - 1) * ostr + col), 0u);
+          if (z == zl - 1)
+            peers.put(sm, ph[kOut] + 2 * ((row + 1) * ostr + col), 0u);
+        }
+        if (pool >= 0) {                     // warp-uniform
+          // rows m and m + 1 (an even m) are lanes l and l ^ 4
+          const uint32_t o = __shfl_xor_sync(0xffffffffu, y, 4);
+          const int zp = z >> 1, prow = out_row(n, zp, prpc);
+          const uint32_t pv = pack2(fmaxf(bf_lo(y), bf_lo(o)),
+                                    fmaxf(bf_hi(y), bf_hi(o)));
+          if (valid && (g & 1) == 0) {
+            peers.put(sm, pool + 2 * (prow * ostr + col), pv);
+            if (zp == 0)
+              peers.put(sm, pool + 2 * ((prow - 1) * ostr + col), 0u);
+            if (zp == zl / 2 - 1)
+              peers.put(sm, pool + 2 * ((prow + 1) * ostr + col), 0u);
+          }
+        }
+        if (proj && valid) {                 // the projection: float32, local
+          const float2 p = make_float2(
+              __fadd_rn(__fmul_rn(pacc[j][2 * h], psc[col]), psc[fo + col]),
+              __fadd_rn(__fmul_rn(pacc[j][2 * h + 1], psc[col + 1]),
+                        psc[fo + col + 1]));
+          *reinterpret_cast<float2*>(P + mm[h] * fs + col - 8 * sl.lo) = p;
+        }
+      }
     }
   }
-  net.w += (long long)k * Cin * F;
-  net.aff += 2 * F;
 }
 
-__device__ void conv(Net& net, const float* in, int Z, int Cin, int k, int F,
-                     float* out, const float* res, bool relu, bool rnd) {
-  layer(net, in, Z, Cin, k, F, false, out, res, relu, rnd);
-}
+// kOne: a cluster of one CTA, its stores and barriers local at compile time
+template <bool kOne>
+__global__ void __launch_bounds__(kThreads, 1)
+c2cnet_kernel(const float* __restrict__ cols,
+              const unsigned char* __restrict__ wfrag,
+              const bf16* __restrict__ wflat, const float* __restrict__ aff,
+              const int* __restrict__ table, float* __restrict__ out, int N,
+              int Z, int J, int cpc, int nph, int depth, int slot_bytes,
+              int bar_off, int x_off, int x_stride, int smem_bytes) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  __shared__ int tab[kMaxPhases * kNF];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cs = kOne ? 1 : (int)cluster_size();
+  const int rank = kOne ? 0 : (int)cluster_rank();
+  const int n0 = (blockIdx.x / cs) * cpc, nh = min(cpc, N - n0);
+  const uint32_t sbase = smem_u32(sm);
+  const int ngemm = nph - 1;
 
-__device__ void upconv(Net& net, const float* in, int Z, int Cin, int F,
-                       float* out, const float* skip) {
-  layer(net, in, Z, Cin, 2, F, true, out, skip, true, true);
-}
-
-__device__ void pool(const float* in, int Z, int C, float* out) {
-  __syncthreads();
-  for (int o = threadIdx.x; o < (Z / 2) * C; o += blockDim.x) {
-    const int z = o / C, c = o - z * C;
-    out[o] = fmaxf(in[2 * z * C + c], in[(2 * z + 1) * C + c]);
+  for (int i = tid; i < nph * kNF; i += kThreads) tab[i] = table[i];
+  // the activations start at zero (halo rows, padded input channels)
+  for (int i = x_off / 16 + tid; i < smem_bytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(sm)[i] = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int d = 0; d < depth; ++d) mbar_init(sbase + bar_off + 8 * d, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-}
-
-// ResBlock: out = bf16(relu(aff(conv3(h)) + skip)), h = bf16(relu(aff(
-// conv3(x)))), skip = aff(conv1(x)) (float32) if Cin != F, else x. `h` and
-// `p` are scratch. The flat buffer holds c0, c1, proj in that order.
-__device__ void resblock(Net& net, const float* x, int Z, int Cin, int F,
-                         float* out, float* h, float* p) {
-  conv(net, x, Z, Cin, 3, F, h, nullptr, true, true);        // c0
-  Net c1 = net;                        // c1 runs after the projection
-  net.w += 3LL * F * F;
-  net.aff += 2 * F;
-  const float* skip = x;
-  if (Cin != F) {                                            // proj
-    conv(net, x, Z, Cin, 1, F, p, nullptr, false, false);
-    skip = p;
-  }
-  conv(c1, h, Z, F, 3, F, out, skip, true, true);
-}
-
-__global__ void __launch_bounds__(kThreads)
-c2cnet_kernel(const float* __restrict__ cols, const bf16* __restrict__ w,
-              const float* __restrict__ aff, float* __restrict__ out, int Z,
-              int J) {
-  extern __shared__ __align__(16) float sm[];
-  const int L = C0 * Z;                 // the largest activation of a level
-  float* part = sm;                     // kThreads
-  float* A = part + kThreads;
-  float* B = A + L;
-  float* H = B + L;
-  float* P = H + L;
-  float* S1 = P + L;
-  float* S2 = S1 + L;
-  float* in = S2 + L;                   // (Z, J)
-  bf16* wsm = reinterpret_cast<bf16*>(in + ((J * Z + 3) & ~3));
-  const int n = blockIdx.x;
-  for (int i = threadIdx.x; i < Z * J; i += blockDim.x)
-    in[i] = round_bf16(cols[(long long)n * Z * J + i]);
-
-  Net net{w, aff, wsm, part};
-  const int Z1 = Z / 2, Z2 = Z / 4;
-  conv(net, in, Z, J, 7, CF, A, nullptr, true, true);        // front
-  resblock(net, A, Z, CF, C0, B, H, P);                     // res0
-  resblock(net, B, Z, C0, C0, S1, H, P);                    // skip_res1
-  pool(B, Z, C0, A);
-  resblock(net, A, Z1, C0, C1, B, H, P);                    // encoder_res1
-  resblock(net, B, Z1, C1, C1, S2, H, P);                   // skip_res2
-  pool(B, Z1, C1, A);
-  resblock(net, A, Z2, C1, C2, B, H, P);                    // encoder_res2
-  resblock(net, B, Z2, C2, C2, A, H, P);                    // mid_res
-  resblock(net, A, Z2, C2, C2, B, H, P);                    // decoder_res2
-  upconv(net, B, Z2, C2, C1, A, S2);                        // upsample2
-  resblock(net, A, Z1, C1, C1, B, H, P);                    // decoder_res1
-  upconv(net, B, Z1, C1, C0, A, S1);                        // upsample1
   __syncthreads();
-  // final 1x1 conv C0 -> 1 with its bias, float32 out
-  for (int z = threadIdx.x; z < Z; z += blockDim.x) {
+  if (tid == 0)
+    for (int p = 0; p < depth && p < ngemm; ++p)
+      issue(&tab[p * kNF], sbase + p * slot_bytes, sbase + bar_off + 8 * p,
+            wfrag, aff, rank, cs);
+  // the cluster's columns, rounded to bf16: (Z + 6) rows of x_stride
+  bf16* X = reinterpret_cast<bf16*>(sm + x_off);
+  const float* src = cols + (long long)n0 * Z * J;
+  for (int i = tid; i < nh * Z * J; i += kThreads) {
+    const int n = i / (Z * J), r = i - n * Z * J, z = r / J, c = r - z * J;
+    X[(n * (Z + 6) + 3 + z) * x_stride + c] = __float2bfloat16_rn(src[i]);
+  }
+  Peers peers;
+  peers.cs = cs;
+#pragma unroll
+  for (int q = 0; q < kMaxCs; ++q)
+    peers.base[q] = q < cs ? peer_addr(sbase, q) : 0u;
+  phase_sync(cs);              // every CTA of the cluster runs, zeroed
+
+  for (int p = 0; p < ngemm; ++p) {
+    const int slot = p % depth;
+    mbar_wait(sbase + bar_off + 8 * slot, (p / depth) & 1);
+    gemm_phase(&tab[p * kNF], sm, sm + slot * slot_bytes, peers, rank, cs,
+               nh, warp, lane);
+    phase_sync(cs);
+    // the last warp has the fewest items: it refills the slot
+    if (tid == kThreads - 32 && p + depth < ngemm)
+      issue(&tab[(p + depth) * kNF], sbase + slot * slot_bytes,
+            sbase + bar_off + 8 * slot, wfrag, aff, rank, cs);
+  }
+
+  // the 1x1 output conv, float32, its rows split over the cluster
+  const int* ph = &tab[ngemm * kNF];
+  const int zl = ph[kZl], M = nh * zl, cin = 16 * ph[kCsteps];
+  const bf16* in = reinterpret_cast<const bf16*>(sm + ph[kIn]);
+  const bf16* w = wflat + ph[kW];
+  const float a = aff[ph[kAff]], b = aff[ph[kAff] + 1];
+  for (int m = rank + cs * tid; m < M; m += cs * kThreads) {
+    const int n = m / zl, z = m - n * zl;
+    const bf16* x = in + (n * ph[kInRpc] + ph[kInBase] + z) * ph[kInStride];
     float acc = 0.f;
-    for (int c = 0; c < C0; ++c)
-      acc = fmaf(A[z * C0 + c], __bfloat162float(net.w[c]), acc);
-    out[(long long)n * Z + z] = acc * net.aff[0] + net.aff[1];
+    for (int c = 0; c < cin; ++c)
+      acc = fmaf(__bfloat162float(x[c]), __bfloat162float(w[c]), acc);
+    out[(long long)(n0 + n) * Z + z] = __fadd_rn(__fmul_rn(acc, a), b);
   }
-}
-
-// shared memory of a block: the float32 buffers, then one layer's weights
-size_t smem_bytes(int Z, int J) {
-  const int big = 3 * C2 * C2;         // the largest conv: 128 -> 128
-  const int wmax = 7 * J * CF > big ? 7 * J * CF : big;
-  return sizeof(float) * (kThreads + 6 * (size_t)C0 * Z +
-                          (((size_t)J * Z + 3) & ~(size_t)3)) +
-         sizeof(bf16) * (size_t)wmax;
 }
 
 }  // namespace
 
-// cols (N, Z, J) float32; w, aff the flat weight and affine buffers (see
-// above); out (N, Z) float32. Z % 4 == 0.
-FVP_API int fvp_c2cnet(const float* cols, const void* w, const float* aff,
-                       float* out, int N, int Z, int J, void* stream) {
-  if (N <= 0 || Z <= 0 || Z % 4 || J <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(Z, J);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        c2cnet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+// cols (N, Z, J) float32; wfrag the GEMM weights in fragment order; wflat
+// the flat weights (the output conv's at the final phase's w_off); aff the
+// flat affines; table the plan's phases (nph x 26 int32); out (N, Z)
+// float32. The launch is ceil(N / cpc) clusters of cs CTAs, each with
+// smem_bytes of dynamic shared memory (ops/kernels/c2cnet.py::c2cnet_plan).
+FVP_API int fvp_c2cnet(const float* cols, const void* wfrag, const void* wflat,
+                       const float* aff, const int* table, float* out, int N,
+                       int Z, int J, int cs, int cpc, int nph, int depth,
+                       int slot_bytes, int bar_off, int x_off, int x_stride,
+                       int smem_bytes, void* stream) {
+  if (N <= 0 || Z <= 0 || Z % 4 || J <= 0 || cpc <= 0 || nph < 2 ||
+      nph > kMaxPhases || (cs != 1 && cs != 2 && cs != 4) || depth < 2 ||
+      depth > kMaxDepth || slot_bytes % 128 || x_off % 16 ||
+      smem_bytes % 16 || smem_bytes < x_off)
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;
+  if (smem_bytes > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        c2cnet_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(c2cnet_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
     if (e != cudaSuccess) return (int)e;
+    smem_set = smem_bytes;
   }
-  c2cnet_kernel<<<N, kThreads, smem, (cudaStream_t)stream>>>(
-      cols, static_cast<const bf16*>(w), aff, out, Z, J);
+  const int clusters = (N + cpc - 1) / cpc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, cs == 1 ? c2cnet_kernel<true> : c2cnet_kernel<false>, cols, static_cast<const unsigned char*>(wfrag),
+      static_cast<const __nv_bfloat16*>(wflat), aff, table, out, N, Z, J,
+      cpc, nph, depth, slot_bytes, bar_off, x_off, x_stride, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

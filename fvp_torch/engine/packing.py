@@ -19,7 +19,8 @@ Cin, F) or (2, Cin, F) for an up-conv, w[r, s] the tap of output
 (2i + r, 2j + s)), "aff": (2, F) float32 (scale, shift)}, BN folded in
 float32 at eps 1e-5, an up-conv's bias kept in its shift: `pack_p2pnet`
 (P2PNet, with its 1x1 output conv's bias in float32), `pack_c2cnet` (C2CNet,
-every layer a view into two flat buffers that its one-launch kernel walks)
+every layer a view into two flat buffers, and its weights once more in the
+order of its one-launch kernel's mma fragments)
 and `pack_bottleneck_stage` (a ResNet layer of stride-1 Bottlenecks). They
 equal the reference package's `pack_p2pnet`, `pack_c2cnet` and
 `pack_bottleneck_stage` (fvp_tpu/ops/pallas/hourglass.py, trunk.py) up to
@@ -34,6 +35,7 @@ from torch import nn
 
 from fvp_torch.models.blocks import ResBlock, UpsampleBlock
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
+from fvp_torch.ops.kernels.c2cnet import pack_fragments
 from fvp_torch.ops.kernels.centernet import flatten_weights
 from fvp_torch.ops.kernels.deconv_head import pack_deconv_weight
 
@@ -208,10 +210,14 @@ def pack_p2pnet(net: P2PNet) -> dict:
 def pack_c2cnet(net: C2CNet) -> dict:
     """C2CNet for ops/kernels/c2cnet.py: the layers as in pack_p2pnet, each
     a view into "w_flat" (bf16) and "aff_flat" (float32), in the order of
-    c2cnet.layer_shapes."""
+    c2cnet.layer_shapes, and "w_frag": the same weights but the output
+    conv's in the order of the kernel's mma B fragments
+    (c2cnet.pack_fragments)."""
     packed = _hourglass_bf16(net)
     packed["final"] = _layer_bf16(net.output_hm)
     layers = hourglass_layers(packed) + [packed["final"]]
+    packed["w_frag"] = pack_fragments(layers[:-1],
+                                      packed["front"]["w"].shape[1])
     for key, flat_key in (("w", "w_flat"), ("aff", "aff_flat")):
         flat = torch.cat([lay[key].reshape(-1) for lay in layers])
         offset = 0

@@ -1,25 +1,54 @@
 """Wrapper of the C2CNet kernel (csrc/c2cnet.cu), with its plain version:
 the `fuse_p2p` lowering of the HDN's 1D height net.
 
-Replaces fvp_tpu/ops/pallas/hourglass.py::pallas_c2cnet: the whole 1D
-hourglass over the proposals' z-columns in one launch. The kernel runs one
-block per column, with every level's activations (at most Z x 32 values
-each) in shared memory and the bf16 weights copied from L2 into shared
-memory layer by layer. It rounds where the TPU kernel rounds
-(`_c2c_kernel`): the input to bf16; each ResBlock's first conv; the join
-relu(h2 + skip), where a projection skip stays float32 and an identity
-skip is the bf16 input; each up-conv after its affine and ReLU, and again
-after the skip add. The 1x1 output conv adds its bias in float32.
+Replaces fvp_tpu/ops/pallas/hourglass.py::pallas_c2cnet, which runs the
+whole 1D hourglass for all columns in one grid step with the items on the
+sublanes, so that each layer is one matrix product over all of them. The
+kernel does the same on Hopper's tensor cores: one launch, and each layer
+one implicit GEMM over every column of a cluster (rows: column x height,
+K: taps x input channels, N: output channels) on `mma.sync` m16n8k16
+(bf16 operands, float32 sums). A ResBlock's 1x1 projection shares the
+GEMM of its first conv (extra B columns on the centre tap, their own
+epilogue), and the 2x2 max pool runs in the epilogue of the conv before
+it, so the 23 layers take 19 phases with a barrier after each.
+
+The work is split over a thread-block cluster of `cs` CTAs (1, 2 or 4)
+along the output channels (along the rows where a layer has fewer 8-wide
+column tiles than CTAs). The default is a cluster of one CTA, the fastest
+at the flagship's 10 columns (5 CTAs of 2 columns): its stores and
+barriers stay local, where a larger cluster pays for its distributed
+stores and cluster barriers more than it gains from splitting a phase. Each CTA holds every activation of its cluster's
+columns in shared memory (bf16, (column, height + halo, channels + 8)
+rows, zero halo rows, so a tap is a row offset), streams its slice of
+each layer's weights into a ring of `depth` slots with bulk copies (the
+next layers' weights are in flight while this one computes), and writes
+its output slice into every CTA's activations through distributed shared
+memory before the cluster barrier; each slot also brings the phase's
+affines. `c2cnet_plan` is the tiling and the
+phase table the kernel walks, in Python on shapes alone, so that the CPU
+tests can check it.
+
+Numerics are the TPU kernel's (`_c2c_kernel`): the input rounds to bf16;
+each ResBlock's first conv rounds relu(aff(conv)); a projection skip stays
+float32; the join relu(aff(conv) + skip) rounds, where an identity skip is
+the bf16 input; each up-conv rounds relu(aff(.)), adds the bf16 skip and
+rounds again; the 1x1 output conv adds its bias in float32. Products of
+bf16 values are exact in float32, so only the order of the sums differs
+from the plain version.
 
 `packed` comes from engine/packing.py::pack_c2cnet: the layers as
 {"w": (k, Cin, F) bf16, "aff": (2, F) float32} (an up-conv's "w" is
 (2, Cin, F), w[r] the tap of output 2z + r), all of them views into two
 flat buffers, "w_flat" and "aff_flat", in the order `layer_shapes` lists,
-which is the order the kernel walks. The plain version is P2PNet's
-hourglass (`hourglass.run`) on the 1D plain ops.
+and "w_frag": every layer but the output conv in the order of the mma's B
+fragments (`fragments`). The plain version is P2PNet's hourglass
+(`hourglass.run`) on the 1D plain ops.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +59,43 @@ from fvp_torch.ops.kernels.hourglass import run
 C2C = Kernel("c2cnet", "fvp_c2cnet")
 # the encoder-decoder's widths and the front's (models/blocks.py)
 _C0, _C1, _C2, _FRONT = 32, 64, 128, 16
+
+THREADS = 256
+ITEM_TILES = 2           # n8 tiles of a warp's item (csrc kItemTiles)
+MAX_SMEM = 232448        # shared memory one block may use
+STATIC_SMEM = 24 * 26 * 4  # the kernel's static copy of the phase table
+CLUSTER_SIZES = (1, 2, 4)
+# the plan's default cluster size: the fastest of CLUSTER_SIZES at the
+# flagship's (10, 20, 15) columns (chip_smoke.py times each): a cluster of
+# one CTA, whose stores and barriers stay local
+DEFAULT_CS = 1
+FRAG_BYTES = 256         # one n8 x k16 B fragment of a warp: 32 lanes x 8 B
+
+# The fields of one phase of the kernel's table, in the order of the enum
+# `Field` in csrc/c2cnet.cu (tests/test_torch_c2cnet_plan.py checks that
+# the two agree). Offsets are bytes into shared memory unless named.
+FIELDS = (
+    "kind",       # CONV, UPCONV or FINAL
+    "in_off", "in_stride", "in_rpc", "in_base",
+    # input buffer, its row stride (elements), rows per column, and the
+    # row of (z = 0, tap 0) in a column: halo - taps // 2
+    "zl",         # height of the input level (GEMM rows per column)
+    "taps", "csteps",  # taps, and 16-channel steps per tap (Cin / 16)
+    "ncols", "fo",     # GEMM columns (F, or 2F for an up-conv), and F
+    "out_off", "out_stride", "out_rpc",
+    "res", "res_off",  # RES_*, and the bf16 skip's buffer (out's layout)
+    "relu",
+    "pool_off", "pool_rpc",  # the pooled output (-1: none), rows/column
+    "proj",       # 1: a 1x1 projection shares this GEMM (output to P)
+    "split",      # SPLIT_COLS or SPLIT_ROWS over the cluster
+    "w_off", "pw_off",  # byte offsets into w_frag (final: w_flat index)
+    "aff_off", "paff_off",  # float offsets into aff_flat
+    "p_off")      # the float32 projection buffer
+NF = 26                  # ints per phase in the table
+assert len(FIELDS) <= NF
+CONV, UPCONV, FINAL = 0, 1, 2
+RES_NONE, RES_BF16, RES_PROJ = 0, 1, 2
+SPLIT_COLS, SPLIT_ROWS = 0, 1
 
 
 def layer_shapes(J: int) -> list[tuple[str, int, int, int]]:
@@ -47,6 +113,289 @@ def layer_shapes(J: int) -> list[tuple[str, int, int, int]]:
             + [("decoder_upsample1", 2, _C1, _C0), ("final", 1, _C0, 1)])
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def gemm_shape(name: str, taps: int, cin: int, f: int, J: int
+               ) -> tuple[int, int, int]:
+    """(taps, padded Cin, columns) of a layer as the kernel's GEMM: an
+    up-conv is one tap of 2F columns (column r F + f is output 2z + r);
+    the front's J channels are padded to a multiple of 16."""
+    if name.startswith("decoder_upsample"):
+        return 1, cin, 2 * f
+    return taps, _pad16(cin), f
+
+
+# -- weights in fragment order -------------------------------------------------
+
+def fragments(w: torch.Tensor, cin_pad: int) -> torch.Tensor:
+    """A GEMM's weights (taps, Cin, columns) -> flat, in the order of the
+    mma.m16n8k16 B fragments: [column tile of 8][k16 step][lane][4], lane
+    (g, t) holding K rows 16 s + 2 t + {0, 1, 8, 9} of column 8 n + g,
+    K = tap x cin_pad (zero rows where a tap has fewer channels). One
+    column tile's fragments are contiguous, so a CTA's slice of columns
+    is one bulk copy."""
+    T, cin, nc = w.shape
+    wp = w.new_zeros((T, cin_pad, nc))
+    wp[:, :cin] = w
+    S, NT = T * cin_pad // 16, nc // 8
+    v = wp.reshape(S, 2, 4, 2, NT, 8)          # (s, h, t, e, n, g)
+    return v.permute(4, 0, 5, 2, 1, 3).reshape(-1).contiguous()
+
+
+def gemm_weights(name: str, w: torch.Tensor) -> torch.Tensor:
+    """A packed layer's "w" as its GEMM's (taps, Cin, columns)."""
+    if name.startswith("decoder_upsample"):
+        return w.permute(1, 0, 2).reshape(1, w.shape[1], -1)
+    return w
+
+
+def frag_offsets(J: int) -> list[int]:
+    """Byte offset in w_frag of each layer of layer_shapes but the last."""
+    offs, off = [], 0
+    for name, t, ci, f in layer_shapes(J)[:-1]:
+        offs.append(off)
+        taps, cinp, nc = gemm_shape(name, t, ci, f, J)
+        off += taps * cinp * nc * 2
+    return offs + [off]
+
+
+def pack_fragments(layers: list[dict], J: int) -> torch.Tensor:
+    """w_frag (bf16) of the packed layers in layer_shapes' order."""
+    parts = []
+    for (name, t, ci, f), lay in zip(layer_shapes(J)[:-1], layers):
+        taps, cinp, _ = gemm_shape(name, t, ci, f, J)
+        parts.append(fragments(gemm_weights(name, lay["w"]), cinp))
+    return torch.cat(parts)
+
+
+# -- the tiling -----------------------------------------------------------------
+
+class C2CPlan(NamedTuple):
+    """How one launch runs C2CNet on (N, Z, J) columns: `clusters` of `cs`
+    CTAs, each cluster `cols` columns (the last may have fewer); a ring of
+    `depth` weight slots of `slot_bytes` at shared offset 0, its mbarriers
+    at `bar_off`, then the activation buffers (`buffers`: name -> (offset,
+    bytes)); `smem` bytes in all. `phases` is the table the kernel walks
+    (NF ints each): 19 GEMM phases and the output conv."""
+    N: int
+    Z: int
+    J: int
+    cs: int
+    cols: int
+    clusters: int
+    depth: int
+    slot_bytes: int
+    bar_off: int
+    x_off: int
+    x_stride: int
+    smem: int
+    buffers: tuple
+    phases: tuple
+
+    @property
+    def barriers(self) -> int:
+        """Cluster barriers per launch: one at the start, one per GEMM."""
+        return len(self.phases)
+
+
+def _col_bytes(Z: int, J: int) -> dict[str, int]:
+    """bf16 elements per column of each activation buffer: A, B, H hold
+    any level ((height + 2) rows of channels + 8), S1 and S2 the skips of
+    levels 0 and 1, X the input with a 3-row halo."""
+    gen = max((z + 2) * (c + 8) for z, c in
+              ((Z, _C0), (Z // 2, _C1), (Z // 4, _C2)))
+    return {"X": (Z + 6) * (_pad16(J) + 8), "A": gen, "B": gen, "H": gen,
+            "S1": (Z + 2) * (_C0 + 8), "S2": (Z // 2 + 2) * (_C1 + 8)}
+
+
+def _align(n: int, a: int = 128) -> int:
+    return -(-n // a) * a
+
+
+def _slice(ncols: int, split: int, rank: int, cs: int) -> tuple[int, int]:
+    """The column tiles [lo, hi) of CTA `rank` (the kernel's `slice`)."""
+    nt = ncols // 8
+    if split == SPLIT_ROWS:
+        return 0, nt
+    return rank * nt // cs, (rank + 1) * nt // cs
+
+
+def phase_weight_bytes(ph: dict, rank: int, cs: int) -> tuple[int, int]:
+    """Bytes of a GEMM phase's weights that CTA `rank` copies: its conv's
+    slice and its projection's."""
+    lo, hi = _slice(ph["ncols"], ph["split"], rank, cs)
+    w = (hi - lo) * ph["taps"] * ph["csteps"] * FRAG_BYTES
+    return w, (hi - lo) * ph["csteps"] * FRAG_BYTES if ph["proj"] else 0
+
+
+def phase_slot_bytes(ph: dict, rank: int, cs: int) -> int:
+    """A ring slot's bytes for a GEMM phase: the weights, then the whole
+    (2, F) float32 affine of the conv and of its projection."""
+    return sum(phase_weight_bytes(ph, rank, cs)) + \
+        8 * ph["fo"] * (2 if ph["proj"] else 1)
+
+
+def _layout(cols: int, Z: int, J: int, cs: int, depth: int, slot: int):
+    bar_off = depth * slot
+    off = _align(bar_off + 8 * depth)
+    bufs = {}
+    for name, elems in _col_bytes(Z, J).items():
+        bufs[name] = (off, _align(cols * elems * 2))
+        off += bufs[name][1]
+    bufs["P"] = (off, _align(cols * Z * _C0 // cs * 4))
+    return bar_off, bufs, off + bufs["P"][1]
+
+
+def _phases(Z: int, J: int, cs: int, bufs: dict) -> list[dict]:
+    """The kernel's walk of the net: (buffer, level) of every input and
+    output, the fused projections and pools, the weights' offsets."""
+    shapes = layer_shapes(J)
+    woff = frag_offsets(J)
+    aoff, a = [], 0
+    for _, _, _, f in shapes:
+        aoff.append(a)
+        a += 2 * f
+    idx = {name: i for i, (name, *_r) in enumerate(shapes)}
+    Zs = (Z, Z // 2, Z // 4)
+    chans = {}                      # buffer -> channels of its tensor now
+    out = []
+
+    def stride(c):
+        return c + 8
+
+    def gemm(name, src, lvl, dst, relu, res=RES_NONE, res_buf=None,
+             pool=None, proj=None, halo_in=1):
+        i = idx[name]
+        _, t, ci, f = shapes[i]
+        taps, cinp, nc = gemm_shape(name, t, ci, f, J)
+        up = name.startswith("decoder_upsample")
+        zl = Zs[lvl]
+        zo = 2 * zl if up else zl
+        in_stride = _pad16(J) + 8 if src == "X" else stride(chans[src])
+        ph = dict.fromkeys(FIELDS, 0)
+        ph.update(
+            kind=UPCONV if up else CONV, in_off=bufs[src][0],
+            in_stride=in_stride, in_rpc=zl + 2 * halo_in,
+            in_base=halo_in - (taps // 2), zl=zl, taps=taps,
+            csteps=cinp // 16, ncols=nc, fo=f, out_off=bufs[dst][0],
+            out_stride=stride(f), out_rpc=zo + 2, res=res,
+            res_off=bufs[res_buf][0] if res == RES_BF16 else 0,
+            relu=int(relu), pool_off=-1, pool_rpc=0, proj=0,
+            split=SPLIT_COLS if (nc // 8) % cs == 0 else SPLIT_ROWS,
+            w_off=woff[i], pw_off=0, aff_off=aoff[i], paff_off=0,
+            p_off=bufs["P"][0])
+        if pool is not None:
+            ph.update(pool_off=bufs[pool][0], pool_rpc=zl // 2 + 2)
+        if proj is not None:
+            j = idx[proj]
+            assert ph["split"] == SPLIT_COLS
+            ph.update(proj=1, pw_off=woff[j], paff_off=aoff[j])
+        chans[dst] = f
+        if pool is not None:
+            chans[pool] = f
+        out.append(ph)
+
+    def resblock(name, x, lvl, dst, cin, f, pool=None):
+        proj = f"{name}.proj" if cin != f else None
+        gemm(f"{name}.c0", x, lvl, "H", True, proj=proj)
+        if proj:
+            gemm(f"{name}.c1", "H", lvl, dst, True, RES_PROJ, pool=pool)
+        else:
+            gemm(f"{name}.c1", "H", lvl, dst, True, RES_BF16, x, pool=pool)
+
+    gemm("front", "X", 0, "A", True, halo_in=3)
+    resblock("res0", "A", 0, "B", _FRONT, _C0, pool="A")
+    resblock("skip_res1", "B", 0, "S1", _C0, _C0)
+    resblock("encoder_res1", "A", 1, "B", _C0, _C1, pool="A")
+    resblock("skip_res2", "B", 1, "S2", _C1, _C1)
+    resblock("encoder_res2", "A", 2, "B", _C1, _C2)
+    resblock("mid_res", "B", 2, "A", _C2, _C2)
+    resblock("decoder_res2", "A", 2, "B", _C2, _C2)
+    gemm("decoder_upsample2", "B", 2, "A", True, RES_BF16, "S2")
+    resblock("decoder_res1", "A", 1, "B", _C1, _C1)
+    gemm("decoder_upsample1", "B", 1, "A", True, RES_BF16, "S1")
+    fin = dict.fromkeys(FIELDS, 0)
+    fin.update(kind=FINAL, in_off=bufs["A"][0], in_stride=stride(_C0),
+               in_rpc=Z + 2, in_base=1, zl=Z, taps=1, csteps=_C0 // 16,
+               ncols=1, fo=1, pool_off=-1, split=SPLIT_ROWS,
+               w_off=sum(t * ci * f for _, t, ci, f in shapes[:-1]),
+               aff_off=aoff[-1])
+    return out + [fin]
+
+
+@functools.lru_cache(maxsize=None)
+def c2cnet_plan(N: int, Z: int, J: int, cs: int | None = None,
+                depth: int | None = None) -> C2CPlan:
+    """The tiling of one launch: the cluster size `cs` (DEFAULT_CS
+    unless given, or the largest other size where one column of height Z
+    does not fit beside DEFAULT_CS's ring), the columns per cluster (as
+    many as one CTA's shared memory holds beside a ring of `depth` slots,
+    then balanced over the clusters), the ring's depth (3 where that needs
+    no more clusters than 2, unless given) and the shared-memory offsets.
+    Z % 4 == 0."""
+    if cs is None:                 # the default, else the next that fits
+        order = sorted(CLUSTER_SIZES, key=lambda c: (c != DEFAULT_CS, -c))
+        for c in order:
+            try:
+                return c2cnet_plan(N, Z, J, c, depth)
+            except ValueError:
+                if c == order[-1]:
+                    raise
+    if cs not in CLUSTER_SIZES:
+        raise ValueError(f"c2cnet_plan: cs = {cs}, not in {CLUSTER_SIZES}")
+    if N < 1 or Z < 4 or Z % 4 or J < 1:
+        raise ValueError(f"c2cnet_plan: N = {N}, Z = {Z} (a multiple of "
+                         f"4), J = {J}")
+    budget = MAX_SMEM - STATIC_SMEM
+    probe = _phases(Z, J, cs, {k: (0, 0) for k in
+                               ("X", "A", "B", "H", "S1", "S2", "P")})
+    slot = _align(max(phase_slot_bytes(ph, r, cs)
+                      for ph in probe[:-1] for r in range(cs)))
+
+    def most_cols(d):
+        c = 0
+        while c < N and _layout(c + 1, Z, J, cs, d, slot)[2] <= budget:
+            c += 1
+        return c
+
+    if depth is None:
+        c2, c3 = most_cols(2), most_cols(3)
+        depth = 3 if c3 >= 1 and -(-N // c3) == -(-N // max(c2, 1)) else 2
+    if depth not in (2, 3):
+        raise ValueError(f"c2cnet_plan: depth = {depth}, not 2 or 3")
+    cmax = most_cols(depth)
+    if cmax < 1:
+        raise ValueError(f"c2cnet_plan: one column of height {Z} does not "
+                         f"fit in shared memory beside the weight ring")
+    clusters = -(-N // cmax)
+    cols = -(-N // clusters)
+    bar_off, bufs, smem = _layout(cols, Z, J, cs, depth, slot)
+    phases = _phases(Z, J, cs, bufs)
+    table = tuple(tuple(ph[k] for k in FIELDS) + (0,) * (NF - len(FIELDS))
+                  for ph in phases)
+    return C2CPlan(N, Z, J, cs, cols, clusters, depth, slot, bar_off,
+                   bufs["X"][0], _pad16(J) + 8, smem,
+                   tuple(sorted(bufs.items())), table)
+
+
+def phase_dicts(plan: C2CPlan) -> list[dict]:
+    """The plan's phases as dicts of FIELDS."""
+    return [dict(zip(FIELDS, row)) for row in plan.phases]
+
+
+_TABLES: dict = {}
+
+
+def _table(plan: C2CPlan, device) -> torch.Tensor:
+    key = (plan, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.tensor(plan.phases, dtype=torch.int32,
+                                    device=device).reshape(-1).contiguous()
+    return _TABLES[key]
+
+
 # -- plain version ------------------------------------------------------------
 
 def c2cnet_plain(packed: dict, cols: torch.Tensor) -> torch.Tensor:
@@ -57,10 +406,12 @@ def c2cnet_plain(packed: dict, cols: torch.Tensor) -> torch.Tensor:
 
 # -- kernel launch ------------------------------------------------------------
 
-def c2cnet(packed: dict, cols: torch.Tensor) -> torch.Tensor:
+def c2cnet(packed: dict, cols: torch.Tensor, *,
+           cs: int | None = None) -> torch.Tensor:
     """C2CNet on proposal z-columns (N, Z, J) float32 -> (N, Z) float32
-    height heatmaps: one kernel launch for a CUDA tensor, the plain version
-    for a CPU tensor. Z must be a multiple of 4 (two pooling levels)."""
+    height heatmaps: one kernel launch for a CUDA tensor (on clusters of
+    `cs` CTAs, the plan's default unless given), the plain version for a
+    CPU tensor. Z must be a multiple of 4 (two pooling levels)."""
     if not cols.is_cuda:
         return c2cnet_plain(packed, cols)
     N, Z, J = cols.shape
@@ -68,13 +419,25 @@ def c2cnet(packed: dict, cols: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"c2cnet: Z = {Z} is not a multiple of 4")
     cols = cols.contiguous()
     check(cols, "cols")
-    n_w = sum(t * ci * f for _, t, ci, f in layer_shapes(J))
-    n_aff = sum(2 * f for _, _, _, f in layer_shapes(J))
+    shapes = layer_shapes(J)
+    n_w = sum(t * ci * f for _, t, ci, f in shapes)
+    n_aff = sum(2 * f for _, _, _, f in shapes)
     check(packed["w_flat"], "w_flat", (n_w,), dtype=torch.bfloat16,
           device=cols.device)
     check(packed["aff_flat"], "aff_flat", (n_aff,), device=cols.device)
+    check(packed["w_frag"], "w_frag", (frag_offsets(J)[-1] // 2,),
+          dtype=torch.bfloat16, device=cols.device)
     out = torch.empty((N, Z), dtype=torch.float32, device=cols.device)
     if N:
-        C2C(ptr(cols), ptr(packed["w_flat"]), ptr(packed["aff_flat"]),
-            ptr(out), N, Z, J)
+        launch(packed, cols, out, c2cnet_plan(N, Z, J, cs))
     return out
+
+
+def launch(packed: dict, cols: torch.Tensor, out: torch.Tensor,
+           plan: C2CPlan) -> None:
+    """One launch of the kernel on checked tensors."""
+    C2C(ptr(cols), ptr(packed["w_frag"]), ptr(packed["w_flat"]),
+        ptr(packed["aff_flat"]), ptr(_table(plan, cols.device)), ptr(out),
+        plan.N, plan.Z, plan.J, plan.cs, plan.cols, len(plan.phases),
+        plan.depth, plan.slot_bytes, plan.bar_off, plan.x_off, plan.x_stride,
+        plan.smem)

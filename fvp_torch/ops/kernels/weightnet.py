@@ -3,9 +3,22 @@ version.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. `packed` comes from engine/packing.py::pack_weightnet.
+
+The kernel runs one block per (map n, band of `rows` map rows): it reads
+the band's rows of all joints (of a chunk of joints where that would not
+fit) with coalesced loads, transposes them into
+joint-major tiles in shared memory, and each thread convolves one joint's
+pooled cells for a group of 4 channels held in registers. The band sums go
+to a scratch tensor and the last block of each n adds them in band order,
+so the mean is taken in a fixed order. `weightnet_plan` picks the band, in
+Python on shapes alone, so that the CPU tests can check it.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -13,6 +26,100 @@ import torch.nn.functional as F
 from fvp_torch.ops.kernels import Kernel, check, ptr
 
 WEIGHTNET_POOL = Kernel("weightnet_pool", "fvp_weightnet_pool")
+
+C = 32                   # WeightNet's conv channels
+GROUP = 4                # channels a thread holds
+MAX_REPS = 4             # threads that share a (joint, group)
+MAX_THREADS = 512        # the kernel's launch bound
+H100_SMS = 132
+MAX_SMEM = 232448
+
+
+class WeightNetPlan(NamedTuple):
+    """One launch over (N, A, B, J) planes: `bands` bands of `rows` map
+    rows per n (the last may be shorter), each in chunks of `joints` joints
+    (J unless a band of all joints would not fit), N x bands x chunks
+    blocks of `threads` = joints x (C / group) x `reps` threads, each
+    joint's tile `plane` floats of (rows + 2) x (B + 2), `smem` bytes of
+    shared memory."""
+    N: int
+    A: int
+    B: int
+    J: int
+    rows: int
+    bands: int
+    joints: int
+    group: int
+    reps: int
+    threads: int
+    plane: int
+    smem: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.J // self.joints)
+
+    @property
+    def blocks(self) -> int:
+        return self.N * self.bands * self.chunks
+
+
+def _smem(rows: int, B: int, joints: int, threads: int) -> int:
+    return 4 * (joints * (rows + 2) * (B + 2) + threads * GROUP)
+
+
+def _fits(rows: int, B: int, joints: int, threads: int) -> bool:
+    return (_smem(rows, B, joints, threads) <= MAX_SMEM
+            and (rows + 2) * (B * joints) ** 2 < 2 ** 32)
+
+
+@functools.lru_cache(maxsize=None)
+def weightnet_plan(N: int, A: int, B: int, J: int,
+                   rows: int | None = None) -> WeightNetPlan:
+    """The band height: the even `rows` (unless given) that minimises the
+    busiest SM's rows, (rows + 2) per block (its halo) times the blocks it
+    runs when the blocks spread over the 132 SMs; ties go to fewer rows.
+    All J joints in a block where a band of 2 rows fits (and J <= 96),
+    else the fewest chunks of joints that do. Any even A and B, any J."""
+    if A < 2 or B < 2 or A % 2 or B % 2 or N < 1 or J < 1:
+        raise ValueError(f"weightnet_plan: A = {A}, B = {B} must be even, "
+                         f"N = {N} and J = {J} >= 1")
+    groups = C // GROUP
+    chunks = -(-J // (MAX_THREADS // groups))
+    while True:
+        joints = -(-J // chunks)
+        reps = min(MAX_REPS, MAX_THREADS // (joints * groups))
+        threads = joints * groups * reps
+        if _fits(2, B, joints, threads) or joints == 1:
+            break
+        chunks += 1
+    fits = [r for r in range(2, A + 1, 2) if _fits(r, B, joints, threads)]
+    if rows is None:
+        if not fits:
+            raise ValueError(f"weightnet_plan: no band of a {A} x {B} map "
+                             f"fits in shared memory")
+        rows = min(fits, key=lambda r: (
+            math.ceil(N * chunks * math.ceil(A / r) / H100_SMS) * (r + 2),
+            r))
+    elif rows not in fits:
+        raise ValueError(f"weightnet_plan: rows = {rows} (even, its tile in "
+                         f"shared memory)")
+    return WeightNetPlan(N, A, B, J, rows, math.ceil(A / rows), joints,
+                         GROUP, reps, threads, (rows + 2) * (B + 2),
+                         _smem(rows, B, joints, threads))
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """Zeroed per-map counters of the last-block mean; the kernel leaves
+    them zero."""
+    key = str(device)
+    if key not in _COUNTERS or _COUNTERS[key].numel() < n:
+        _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                     device=device)
+    return _COUNTERS[key]
 
 
 def weightnet_pool_plain(planes: torch.Tensor, packed: dict) -> torch.Tensor:
@@ -28,9 +135,11 @@ def weightnet_pool_plain(planes: torch.Tensor, packed: dict) -> torch.Tensor:
     return h.mean(dim=(2, 3)).reshape(n, j, C)
 
 
-def weightnet_pool(planes: torch.Tensor, packed: dict) -> torch.Tensor:
+def weightnet_pool(planes: torch.Tensor, packed: dict, *,
+                   rows: int | None = None) -> torch.Tensor:
     """WeightNet's conv front end: (N, A, B, J) plane heatmaps -> (N, J, C)
-    pooled features."""
+    pooled features (on the card in bands of `rows` map rows, the plan's
+    unless given)."""
     if not planes.is_cuda:
         return weightnet_pool_plain(planes, packed)
     N, A, B, J = planes.shape
@@ -44,6 +153,21 @@ def weightnet_pool(planes: torch.Tensor, packed: dict) -> torch.Tensor:
     check(packed["scale"], "scale", (C,), device=planes.device)
     check(packed["shift"], "shift", (C,), device=planes.device)
     out = torch.empty((N, J, C), dtype=torch.float32, device=planes.device)
-    WEIGHTNET_POOL(ptr(planes), ptr(w), ptr(packed["scale"]),
-                   ptr(packed["shift"]), ptr(out), N, A, B, J, C)
+    if N == 0:
+        return out
+    launch(planes, packed, out, weightnet_plan(N, A, B, J, rows))
     return out
+
+
+def launch(planes: torch.Tensor, packed: dict, out: torch.Tensor,
+           plan: WeightNetPlan) -> None:
+    """One launch of the kernel on checked tensors, with its band scratch
+    (N, bands, J, C)."""
+    N, A, B, J = plan.N, plan.A, plan.B, plan.J
+    partial = torch.empty((N, plan.bands, J, C), dtype=torch.float32,
+                          device=planes.device)
+    WEIGHTNET_POOL(ptr(planes), ptr(packed["w"]), ptr(packed["scale"]),
+                   ptr(packed["shift"]), ptr(partial),
+                   ptr(_counters(planes.device, N)), ptr(out), N, A, B, J, C,
+                   plan.rows, plan.bands, plan.joints, plan.reps, plan.plane,
+                   plan.smem)

@@ -6,6 +6,8 @@ inputs (flagship widths, seeded weights, frame 0's heatmaps).
         [--set old|new] [--source FILE]
     python -m fvp_torch.tools.kernel_parts --kernel centernet
         [--variants shipped,no_compute,...]
+    python -m fvp_torch.tools.kernel_parts --kernel c2cnet|weightnet_pool
+        --set old --source FILE
 
 Each variant is the source with text substitutions (each must match once,
 or the script fails) and its own nvcc flags, built by its own nvcc (all in
@@ -20,6 +22,19 @@ only their device time counts.
   `--set new` the tree's pixel-major kernel, on its layout made once
   (the planes kernel alone).
 - centernet, the one cooperative launch at (1, 80, 80, 15).
+- c2cnet and weightnet_pool, `--set new`: the tree's kernels through
+  their wrappers (`--cs`, `--rows` pass a cluster size or band height),
+  with the GEMM, the weight copies, the cluster barrier (a block barrier
+  instead), the epilogue's stores or the zeroing off (c2cnet), and the
+  compute, the tile load, the affine (on each conv output, where the
+  kernel now takes it after the max), the register budget (two blocks per
+  SM) or the channel group (8 a thread) changed (weightnet_pool);
+- c2cnet and weightnet_pool, `--set old`: the earlier kernels (one block per
+  z-column with scalar FMAs; one block per (n, j) map with strided
+  gathers; `git show <commit>:fvp_torch/csrc/c2cnet.cu > FILE`),
+  through their old entry points: C2CNet on frame 0's z-columns (10, 20,
+  15) of the `fuse_p2p` predictor, weightnet_pool on P2PNet's output of
+  K2's planes (30, 64, 64, 15).
 
 Prints one JSON line per variant and appends them to
 `chiprun_out/kernel_parts.json`.
@@ -90,15 +105,95 @@ CENTERNET = [
     ("two_blocks_per_sm", [(r"__launch_bounds__\(kThreads, 1\)",
                             "__launch_bounds__(kThreads, 2)")], []),
 ]
+C2C_OLD = [
+    ("shipped", [], []),
+    ("no_staging", [(r"(__device__ void stage\(bf16\* dst, const bf16\* "
+                     r"src, int n\) \{)", r"\1\n  return;")], []),
+    ("no_fma", [(r"#pragma unroll 4\s*for \(int c = c0; c < c1; \+\+c\)"
+                 r"\s*acc = fmaf\(xr\[c\], __bfloat162float\(wr\[c \* F\]\)"
+                 r", acc\);",
+                 "acc += (float)(c1 - c0) * 1e-3f + xr[c0] * 0.f;")], []),
+    ("no_barrier", [(r"__syncthreads\(\);\s*stage\(net\.wsm, net\.w, k \* "
+                     r"Cin \* F\);\s*__syncthreads\(\);",
+                     "stage(net.wsm, net.w, k * Cin * F);"),
+                    (r"if \(S > 1\) \{( *// S is the same for every "
+                     r"thread)\s*__syncthreads\(\);", r"if (S > 1) {\1")],
+     []),
+]
+WEIGHTNET_OLD = [
+    ("shipped", [], []),
+    ("coalesced", [(r"__ldg\(x \+ \(\(\(long long\)n \* A \+ yy\) \* B \+ "
+                    r"xx\) \* J \+ j\)",
+                    "__ldg(x + ((long long)blockIdx.x * A + yy) * B + xx)")],
+     []),
+    ("no_compute", [(r"for \(int q = threadIdx\.x; q < Ap \* Bq; q \+= "
+                     r"kThreads\) \{",
+                     "for (int q = threadIdx.x; q < 0; q += kThreads) {")],
+     []),
+    ("unrolled", [(r"#pragma unroll 4(\s*for \(int c = 0; c < kC; \+\+c\) "
+                   r"\{\s*float m = -INFINITY;)", r"#pragma unroll\1")], []),
+]
+C2C_NEW = [
+    ("shipped", [], []),
+    ("no_gemm", [(r"    switch \(key\) \{", "    if (key < 0) switch (key) {")],
+     []),
+    ("no_weight_copies", [(r"  mbar_expect_tx\(bar, b1 \+ b2 \+ ba \* \(ph\[kProj\] \? 2 "
+                           r": 1\)\);", "  mbar_arrive(bar);\n  return;")],
+     []),
+    ("cta_barrier", [(r"  else\n    cluster_sync\(\);\n\}", "  else\n    __syncthreads();\n}")],
+     []),
+    ("no_stores", [(r"      if \(q < cs\) st_cluster\(base\[q\] \+ off, v\);",
+                    "      if (q < cs && v == 0xdeadbeefu) "
+                    "st_cluster(base[q] + off, v);"),
+                   (r"      \*reinterpret_cast<uint32_t\*>\(sm \+ off\) = v;",
+                    "      if (v == 0xdeadbeefu) "
+                    "*reinterpret_cast<uint32_t*>(sm + off) = v;")], []),
+    ("generic_gemm", [(r"    switch \(key\) \{", "    switch (key + 4096) {")],
+     []),
+    ("singles512", [(r"constexpr int kThreads = 256,",
+                     "constexpr int kThreads = 512,"),
+                    (r"constexpr int kItemTiles = 2;",
+                     "constexpr int kItemTiles = 1;")], []),
+    ("no_zeroing", [(r"reinterpret_cast<uint4\*>\(sm\)\[i\] = "
+                     r"make_uint4\(0, 0, 0, 0\);", "")], []),
+]
+WEIGHTNET_NEW = [
+    ("shipped", [], []),
+    ("no_compute", [(r"for \(int q = j < jn \? rep : cells; q < cells;",
+                     "for (int q = cells; q < cells;")], []),
+    ("no_load", [(r"const float4 v = __ldg\(s4 \+ i\);",
+                  "const float4 v = make_float4(i, 1.f, 2.f, 3.f);")], []),
+    ("affine_each", [(r"          m = fmaxf\(m, a\);\n        \}\n      sum\[c\] \+= "
+                      r"fmaxf\(__fadd_rn\(__fmul_rn\(m, sc\[c\]\), sh\[c\]\), "
+                      r"0\.f\);",
+                      "          m = fmaxf(m, __fadd_rn(__fmul_rn(a, sc[c]), "
+                      "sh[c]));\n        }\n      sum[c] += fmaxf(m, 0.f);")],
+     []),
+    ("two_blocks_per_sm", [(r"__launch_bounds__\(kMaxThreads\)",
+                            "__launch_bounds__(kMaxThreads, 2)")], []),
+    ("bare", [(r"for \(int q = j < jn \? rep : cells; q < cells;",
+               "for (int q = cells; q < cells;"),
+              (r"const float4 v = __ldg\(s4 \+ i\);",
+               "const float4 v = make_float4(i, 1.f, 2.f, 3.f);")], []),
+    ("no_tail", [(r"  __threadfence\(\);\n  __syncthreads\(\);\n  if \(tid == 0\)",
+                  "  return;\n  __syncthreads();\n  if (tid == 0)")], []),
+    ("group8", [(r"constexpr int kG = 4;", "constexpr int kG = 8;"),
+                (r"constexpr int kMaxThreads = 512;",
+                 "constexpr int kMaxThreads = 384;")], []),
+]
 SETS = {("person_planes", "old"): PERSON_OLD,
         ("person_planes", "new"): PERSON_NEW,
-        ("centernet", "new"): CENTERNET}
+        ("centernet", "new"): CENTERNET,
+        ("c2cnet", "old"): C2C_OLD,
+        ("c2cnet", "new"): C2C_NEW,
+        ("weightnet_pool", "old"): WEIGHTNET_OLD,
+        ("weightnet_pool", "new"): WEIGHTNET_NEW}
 OUT = Path("build") / "parts"
 
 
 def variant_source(src: str, subs) -> str:
     for pat, rep in subs:
-        src, n = re.subn(pat, lambda _m, r=rep: r, src, flags=re.S)
+        src, n = re.subn(pat, lambda m, r=rep: m.expand(r), src, flags=re.S)
         if n != 1:
             raise RuntimeError(f"substitution {pat!r} matched {n} times")
     return src
@@ -124,6 +219,10 @@ def build(source: Path, variants) -> dict[str, Path]:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        for line in out.splitlines():        # the -Xptxas -v report
+            if any(w in line for w in ("Compiling entry", "Used",
+                                       "spill", "stack frame")):
+                print(f"  {name}: {line.strip()}", flush=True)
         libs[name] = lib
     return libs
 
@@ -139,7 +238,7 @@ def load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def _smoke_predictor():
+def _smoke_predictor(fuse_p2p: bool = False):
     import torch
 
     from chip_smoke import MIN_SCORE, blob_heatmaps, random_state_dict
@@ -148,7 +247,7 @@ def _smoke_predictor():
     from fvp_torch.geometry.cameras import default_ring_rig
     from fvp_torch.models.faster_voxelpose import FasterVoxelPose
 
-    cfg = FVPConfig(backbone="", min_score=MIN_SCORE)
+    cfg = FVPConfig(backbone="", min_score=MIN_SCORE, fuse_p2p=fuse_p2p)
     rig = default_ring_rig(cfg.num_views, cfg.space_center,
                            cfg.ori_image_size)
     pred = Predictor.from_state_dict(
@@ -230,6 +329,111 @@ def centernet_call(kind):
     return make
 
 
+def _old_entry(lib, fn, argtypes):
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+
+    def call(*args):
+        err = getattr(lib, fn)(*args, torch_stream())
+        if err:
+            raise RuntimeError(lib.fvp_error_string(err).decode())
+    return call
+
+
+def torch_stream():
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def c2cnet_call(kind):
+    """A function of the variant's library that runs the earlier C2CNet
+    kernel's entry point (or, with `kind` "new", the tree's wrapper) on
+    frame 0's z-columns with the smoke's weights."""
+    import torch
+
+    pred, hm = _smoke_predictor(fuse_p2p=True)
+    pc = pred.packed["c2c_net"]
+    cols = pred.model.detect(hm, pred.rc, pred.packed)["columns"] \
+        .contiguous()
+    N, Z, J = cols.shape
+    out = torch.empty((N, Z), device="cuda")
+    _p, _i = ctypes.c_void_p, ctypes.c_int
+    if kind == "new":
+        from fvp_torch.ops.kernels import c2cnet as kc2c
+
+        def make_new(lib):
+            def run():
+                _build._lib = lib
+                kc2c.c2cnet(pc, cols, cs=OPTIONS.get("cs"))
+            return run
+        return make_new
+
+    def make(lib):
+        call = _old_entry(lib, "fvp_c2cnet", [_p] * 4 + [_i] * 3 + [_p])
+        return lambda: call(cols.data_ptr(), pc["w_flat"].data_ptr(),
+                            pc["aff_flat"].data_ptr(), out.data_ptr(), N,
+                            Z, J)
+    return make
+
+
+def smoke_features(pred, hm):
+    """chip_smoke's K5 input: P2PNet (the cuDNN module) on K2's planes of
+    10 people with full cubes, (30, 64, 64, 15)."""
+    import numpy as np
+    import torch
+
+    from fvp_torch.ops.kernels import sampler as ksamp
+
+    cfg = pred.cfg
+    n, J = cfg.ind_voxels_per_axis[0], cfg.num_joints
+    prs = np.random.RandomState(1)
+    centers = torch.as_tensor(np.stack([
+        prs.uniform(-3000, 3000, 10), prs.uniform(-3500, 2500, 10),
+        prs.uniform(700, 1100, 10)], axis=1)[None].astype(np.float32),
+        device="cuda")
+    bbox = torch.ones((1, 10, 2), device="cuda")
+    mask = torch.ones((1, 10), dtype=torch.bool, device="cuda")
+    planes, _ = ksamp.person_planes(hm, pred.rc, cfg, centers, bbox, mask)
+    return pred.model.joint_net.conv_net(
+        planes.reshape(3 * 10, n, n, J)).contiguous()
+
+
+def weightnet_call(kind):
+    """A function of the variant's library that runs the earlier
+    weightnet_pool entry point (or, with `kind` "new", the tree's wrapper)
+    on chip_smoke's K5 input."""
+    import torch
+
+    pred, hm = _smoke_predictor()
+    feats = smoke_features(pred, hm)
+    pw = pred.packed["weight_net"]
+    N, A, B, J = feats.shape
+    out = torch.empty((N, J, 32), device="cuda")
+    _p, _i = ctypes.c_void_p, ctypes.c_int
+    if kind == "new":
+        from fvp_torch.ops.kernels import weightnet as kwn
+
+        def make_new(lib):
+            def run():
+                _build._lib = lib
+                kwn.weightnet_pool(feats, pw, rows=OPTIONS.get("rows"))
+            return run
+        return make_new
+
+    def make(lib):
+        call = _old_entry(lib, "fvp_weightnet_pool", [_p] * 5 + [_i] * 5
+                          + [_p])
+        return lambda: call(feats.data_ptr(), pw["w"].data_ptr(),
+                            pw["scale"].data_ptr(), pw["shift"].data_ptr(),
+                            out.data_ptr(), N, A, B, J, 32)
+    return make
+
+
+OPTIONS: dict = {}       # --cs, --rows of the tree's wrappers
+CALLS = {"person_planes": person_call, "centernet": centernet_call,
+         "c2cnet": c2cnet_call, "weightnet_pool": weightnet_call}
+
+
 def main() -> int:
     import torch
 
@@ -237,12 +441,15 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="person_planes",
-                    choices=("person_planes", "centernet"))
+                    choices=tuple(CALLS))
     ap.add_argument("--set", default="new", choices=("old", "new"))
     ap.add_argument("--source")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     "all of the set)")
+    ap.add_argument("--cs", type=int, help="c2cnet's cluster size")
+    ap.add_argument("--rows", type=int, help="weightnet_pool's band rows")
     args = ap.parse_args()
+    OPTIONS.update(cs=args.cs, rows=args.rows)
     if not torch.cuda.is_available():
         print("kernel_parts: no CUDA device", file=sys.stderr)
         return 2
@@ -251,21 +458,21 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card, flush=True)
-    source = Path(args.source or _build.CSRC / f"{args.kernel}.cu")
+    stem = "weightnet" if args.kernel == "weightnet_pool" else args.kernel
+    source = Path(args.source or _build.CSRC / f"{stem}.cu")
     variants = SETS[(args.kernel, args.set)]
     if args.variants:
         keep = args.variants.split(",")
         variants = [v for v in variants if v[0] in keep]
     libs = build(source, variants)
-    call = person_call if args.kernel == "person_planes" else centernet_call
-    make = call(args.set)
     rows = []
     with torch.inference_mode():
+        make = CALLS[args.kernel](args.set)
         for name, path in libs.items():
             ms = time_ms(make(load(path)))
             rows.append({"kernel": args.kernel, "set": args.set,
                          "source": str(source), "variant": name, "ms": ms,
-                         "card": card})
+                         "cs": args.cs, "rows": args.rows, "card": card})
             print(json.dumps(rows[-1]), flush=True)
     _build._lib = None
     out = Path("chiprun_out")

@@ -5,8 +5,9 @@ stem and deconv tiles, a 2048-channel deconv input; for the bf16 conv
 kernels every op and width of P2PNet and the bottleneck stage at ragged
 tiles, on both routes (conv_wgmma: Cin 16..256, N 16..256, 1x1 and 3x3,
 every residual and output type, a level with fewer tiles than SMs), C2CNet
-at Z = 8 and 12 and column counts that are no multiple of 8, and the
-`fuse_p2p` path.
+at Z = 8 and 12, column counts that are no multiple of 8, several clusters
+and every cluster size, WeightNet's pool in an odd number of bands and in
+chunks of joints, and the `fuse_p2p` path.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -224,13 +225,22 @@ def test_soft_argmax_kernel(dev, J, N):
     torch.testing.assert_close(p, p_r, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(6, 16, 16, 15), (4, 64, 64, 17)])
-def test_weightnet_pool_kernel(dev, shape):
+@pytest.mark.parametrize("shape,rows", [
+    ((6, 16, 16, 15), None), ((4, 64, 64, 17), None),
+    ((2, 40, 24, 15), 16), ((30, 64, 64, 15), None), ((1, 6, 258, 100), None),
+    ((3, 10, 6, 2), 4)])
+def test_weightnet_pool_kernel(dev, shape, rows):
+    """(2, 40, 24, 15) in 3 bands (16, 16, 8 rows); (1, 6, 258, 100) in
+    chunks of 50 joints; two calls give the same bits (the mean's fixed
+    order)."""
     packed = pack_model(_model(shape[-1], dev))["weight_net"]
     planes = torch.randn(shape, device=dev)
-    got = kwn.weightnet_pool(planes, packed)
+    before = kwn.WEIGHTNET_POOL.launches
+    got = kwn.weightnet_pool(planes, packed, rows=rows)
+    assert kwn.WEIGHTNET_POOL.launches == before + 1
     ref = kwn.weightnet_pool_plain(planes, packed)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(kwn.weightnet_pool(planes, packed, rows=rows), got)
 
 
 def _assert_within_one_bf16_ulp(got, ref):
@@ -504,12 +514,15 @@ def test_p2pnet_kernel(dev, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * scale)
 
 
-@pytest.mark.parametrize("N,Z,J", [(13, 8, 15), (7, 12, 17), (10, 20, 15)])
-def test_c2cnet_kernel(dev, N, Z, J):
+@pytest.mark.parametrize("cs", [None, 1, 2, 4])
+@pytest.mark.parametrize("N,Z,J", [(13, 8, 15), (7, 12, 17), (10, 20, 15),
+                                   (40, 20, 15)])
+def test_c2cnet_kernel(dev, N, Z, J, cs):
+    """Every cluster size; N = 40 (B = 4) runs several clusters."""
     packed = pack_model(_fuse_model(J, dev))["c2c_net"]
     cols = torch.rand((N, Z, J), device=dev)
     before = kc2c.C2C.launches
-    got = kc2c.c2cnet(packed, cols)
+    got = kc2c.c2cnet(packed, cols, cs=cs)
     assert kc2c.C2C.launches == before + 1
     ref = kc2c.c2cnet_plain(packed, cols)
     scale = float(ref.abs().max())
