@@ -27,9 +27,9 @@ non-zero:
    launch by launch, each launch also timed alone and printed with its
    route, tiling plan, shape and bytes; C2CNet, one launch, as a whole);
    the stem's plan and GB/s, and the wrappers' host enqueue times;
-   C2CNet's plan (cluster size, clusters, ring depth, barriers), one launch
-   per call, and each cluster size held and timed; weightnet_pool's plan,
-   its GB/s of input and two calls bitwise equal;
+   C2CNet's plan (CTAs, columns a CTA, ring depth, barriers) and one
+   launch per call; weightnet_pool's plan, its GB/s of input and two calls
+   bitwise equal;
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -1003,7 +1003,7 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
     b = bound(nbytes(cols, got, pc["w_flat"], pc["aff_flat"]),
               c2c_flops(*cols.shape), PEAK_BF16)
     rows["c2cnet"].update(bound_ms=b[0], bound_by=b[1])
-    c2cnet_plans(pc, cols, ref, scale, rows["c2cnet"])
+    c2cnet_plans(pc, cols, rows["c2cnet"])
     for name in ("p2pnet", "c2cnet"):
         log(f"{name}: host_enqueue_ms (one call) "
             f"{rows[name]['host_enqueue_ms']:.4f}")
@@ -1012,10 +1012,8 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
         f"{rows['c2cnet']['library_ms']:.4f} bound_ms={b[0]:.4f} ({b[1]})")
 
 
-def c2cnet_plans(pc, cols, ref, scale, row) -> None:
-    """C2CNet's plan at the default cluster size, one launch per call, and
-    each cluster size held against the plain version and timed."""
-    import torch
+def c2cnet_plans(pc, cols, row) -> None:
+    """C2CNet's plan on frame 0's columns and one launch per call."""
     from fvp_torch.ops.kernels import c2cnet as kc2c
 
     plan = kc2c.c2cnet_plan(*cols.shape)
@@ -1023,27 +1021,12 @@ def c2cnet_plans(pc, cols, ref, scale, row) -> None:
     kc2c.c2cnet(pc, cols)
     if kc2c.C2C.launches != before + 1:
         raise AssertionError("c2cnet: not one launch per call")
-    log(f"c2cnet plan: cs {plan.cs}, {plan.clusters} cluster(s) of "
-        f"{plan.cols} columns, ring depth {plan.depth} x {plan.slot_bytes} "
-        f"B, {plan.barriers} cluster barriers, {plan.smem} B shared; 1 "
-        "launch per call")
-    row["ms_by_cs"] = {}
-    for cs in kc2c.CLUSTER_SIZES:
-        p = kc2c.c2cnet_plan(*cols.shape, cs)
-        got = kc2c.c2cnet(pc, cols, cs=cs)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not err <= NET_RTOL * scale:
-            raise AssertionError(f"c2cnet at cs {cs} disagrees with its "
-                                 "plain version")
-        ms = time_ms(lambda: kc2c.c2cnet(pc, cols, cs=cs))
-        row["ms_by_cs"][cs] = ms
-        log(f"  c2cnet cs {cs}: {p.clusters} cluster(s) of {p.cols} columns "
-            f"({p.clusters * cs} CTAs), ring depth {p.depth}, {p.smem} B "
-            f"shared: {ms:.4f} ms, max_abs_err {err:.3e}")
-    fastest = min(row["ms_by_cs"], key=row["ms_by_cs"].get)
-    log(f"c2cnet: fastest cs {fastest}; the plan's default "
-        f"{kc2c.DEFAULT_CS}")
+    row["plan"] = {"ctas": plan.ctas, "cols": plan.cols,
+                   "depth": plan.depth, "barriers": plan.barriers,
+                   "smem": plan.smem}
+    log(f"c2cnet plan: {plan.ctas} CTAs of {plan.cols} columns, ring depth "
+        f"{plan.depth} x {plan.slot_bytes} B, {plan.barriers} block "
+        f"barriers, {plan.smem} B shared; 1 launch per call")
 
 
 def stage_weights(pred):

@@ -8,7 +8,7 @@
 // at B = 1 (10 columns) its time is bound by the chain of 23 dependent
 // layers, not by operations or bytes. Design (ops/kernels/c2cnet.py
 // documents the plan):
-// - each layer is one implicit GEMM over every column of a cluster on
+// - each layer is one implicit GEMM over every column of a CTA on
 //   mma.sync m16n8k16 (bf16 operands, float32 sums): rows are (column,
 //   height), K is (tap, input channel) in k16 steps, the columns are the
 //   output channels (2F for an up-conv, column r F + f being output
@@ -21,23 +21,21 @@
 //   2x2 max pool runs in the epilogue of the conv that feeds it (the row
 //   pair's values meet through one shuffle), so the net is 19 GEMM phases
 //   and the output conv;
-// - a cluster of cs CTAs (1, 2 or 4) splits each phase's column tiles
-//   (its rows where the tiles do not divide); every CTA holds all of the
-//   cluster's activations, writes its output slice into every CTA's copy
-//   (st.shared::cluster), then one cluster barrier ends the phase. The
-//   plan's default is a cluster of one CTA (at B = 1, five CTAs of two
-//   columns), faster than any split of a phase over a cluster;
-// - each CTA's slice of a phase's weights, pre-packed in the order of the
-//   B fragments (engine/packing.py::pack_c2cnet), arrives by bulk copy
-//   into a ring of 2-3 slots with the phase's affines, so the next phases'
-//   weights are in flight while this one computes and the epilogue reads
-//   shared memory only; a warp reads its B fragment as one 8-byte load
-//   per lane.
+// - each CTA takes a few columns (at B = 1, five CTAs of two columns)
+//   and holds all of their activations; a block barrier ends each phase.
+//   (Splitting a phase's output channels over a thread-block cluster of
+//   2 or 4 CTAs, each storing its slice into every CTA's copy, was slower
+//   at every size measured: PERF.md);
+// - a phase's weights, pre-packed in the order of the B fragments
+//   (engine/packing.py::pack_c2cnet), arrive by bulk copy into a ring of
+//   two slots (one where a tall column leaves no room) with the phase's
+//   affines, so the next phases' weights are
+//   in flight while this one computes and the epilogue reads shared
+//   memory only; a warp reads its B fragment as one 8-byte load per lane.
 // Each warp takes items of one m16 tile by two n8 tiles; each k16 step's
 // mma sums its 16 products into fresh accumulators, which float32 adds
 // bring into the item's sums in K order (so the mma do not wait on each
-// other), all steps unrolled for the phases' shapes (gemm_item). A
-// cluster of one CTA stores locally and ends a phase with a block barrier.
+// other), all steps unrolled for the phases' shapes (gemm_item).
 //
 // Numerics (the TPU kernel's): the input rounds to bf16; the front conv and
 // each ResBlock's first conv round relu(aff(conv)); a projection skip stays
@@ -62,14 +60,14 @@ constexpr int kThreads = 256, kWarps = kThreads / 32;
 // n8 tiles of an item (one m16 tile): two, their mma sharing each A
 // fragment (faster than one tile on 16 warps: tools/kernel_parts.py)
 constexpr int kItemTiles = 2;
-constexpr int kMaxPhases = 24, kNF = 26, kMaxCs = 4, kMaxDepth = 3;
+constexpr int kMaxPhases = 24, kNF = 26, kMaxDepth = 2;
 constexpr int kFrag = 256;               // bytes of one n8 x k16 B fragment
 
 // the fields of a phase (ops/kernels/c2cnet.py::FIELDS, in its order)
 enum Field {
   kKind, kIn, kInStride, kInRpc, kInBase, kZl, kTaps, kCsteps, kNcols,
   kFo, kOut, kOutStride, kOutRpc, kRes, kResOff, kRelu, kPool, kPoolRpc,
-  kProj, kSplit, kW, kPW, kAff, kPAff, kP, kFieldCount
+  kProj, kW, kPW, kAff, kPAff, kP, kFieldCount
 };
 enum Kind { CONV = 0, UPCONV = 1, FINAL = 2 };
 enum Res { RES_NONE = 0, RES_BF16 = 1, RES_PROJ = 2 };
@@ -95,24 +93,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// no "memory" clobber: the epilogue's loads may move above these stores
-// (they read other buffers), and the cluster barrier's asm orders them
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
-  return n;
-}
-
 __device__ __forceinline__ float bf_lo(uint32_t v) {
   return __uint_as_float(v << 16);
 }
@@ -120,62 +100,20 @@ __device__ __forceinline__ float bf_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
 }
 
-// the column tiles [lo, hi) of this CTA (c2cnet.py::_slice)
-struct Slice {
-  int lo, hi;
-};
-__device__ __forceinline__ Slice slice_of(const int* ph, int rank, int cs) {
-  const int nt = ph[kNcols] / 8;
-  if (ph[kSplit]) return {0, nt};
-  return {rank * nt / cs, (rank + 1) * nt / cs};
-}
-
-// one thread: this CTA's weights of phase `ph` into a ring slot, then the
+// one thread: the weights of phase `ph` into a ring slot, then the
 // phase's affine (2, F) float32 and its projection's (so that the epilogue
 // reads them from shared memory)
 __device__ void issue(const int* ph, uint32_t slot, uint32_t bar,
-                      const unsigned char* wfrag, const float* aff, int rank,
-                      int cs) {
-  const Slice s = slice_of(ph, rank, cs);
-  const int ks = ph[kTaps] * ph[kCsteps];
-  const uint32_t b1 = (uint32_t)(s.hi - s.lo) * ks * kFrag;
-  const uint32_t b2 =
-      ph[kProj] ? (uint32_t)(s.hi - s.lo) * ph[kCsteps] * kFrag : 0u;
+                      const unsigned char* wfrag, const float* aff) {
+  const int nt = ph[kNcols] / 8, ks = ph[kTaps] * ph[kCsteps];
+  const uint32_t b1 = (uint32_t)nt * ks * kFrag;
+  const uint32_t b2 = ph[kProj] ? (uint32_t)nt * ph[kCsteps] * kFrag : 0u;
   const uint32_t ba = 8u * ph[kFo];
   mbar_expect_tx(bar, b1 + b2 + ba * (ph[kProj] ? 2 : 1));
-  bulk_load(slot, wfrag + ph[kW] + (size_t)s.lo * ks * kFrag, b1, bar);
-  if (b2)
-    bulk_load(slot + b1,
-              wfrag + ph[kPW] + (size_t)s.lo * ph[kCsteps] * kFrag, b2, bar);
+  bulk_load(slot, wfrag + ph[kW], b1, bar);
+  if (b2) bulk_load(slot + b1, wfrag + ph[kPW], b2, bar);
   bulk_load(slot + b1 + b2, aff + ph[kAff], ba, bar);
   if (b2) bulk_load(slot + b1 + b2 + ba, aff + ph[kPAff], ba, bar);
-}
-
-// Where the epilogue writes: the cluster's shared windows of every CTA
-// (a plain shared store where the cluster is one CTA)
-struct Peers {
-  uint32_t base[kMaxCs];
-  int cs;
-  // a u32 (two bf16 values) at byte offset `off` of every CTA
-  __device__ __forceinline__ void put(unsigned char* sm, uint32_t off,
-                                      uint32_t v) const {
-    if (cs == 1) {
-      *reinterpret_cast<uint32_t*>(sm + off) = v;
-      return;
-    }
-#pragma unroll
-    for (int q = 0; q < kMaxCs; ++q)
-      if (q < cs) st_cluster(base[q] + off, v);
-  }
-};
-
-// the end of a phase: a block barrier where the cluster is one CTA (its
-// stores were local), else a cluster barrier (release / acquire)
-__device__ __forceinline__ void phase_sync(int cs) {
-  if (cs == 1)
-    __syncthreads();
-  else
-    cluster_sync();
 }
 
 // rows of a level's buffer: (column, z) with one halo row on each side
@@ -236,10 +174,10 @@ __device__ void gemm_item_any(float (&acc)[2][4], float (&pacc)[2][4],
                               const bf16* pa, const bf16* pb, int istr,
                               const uint2* w0, const uint2* w1,
                               const uint2* q0, const uint2* q1, int taps,
-                              int cs, bool proj) {
+                              int csteps, bool proj) {
   for (int t = 0; t < taps; ++t)
-    for (int kc = 0; kc < cs; ++kc) {
-      const int st = t * cs + kc;
+    for (int kc = 0; kc < csteps; ++kc) {
+      const int st = t * csteps + kc;
       const uint32_t a[4] = {ld32(pa + t * istr + 16 * kc),
                              ld32(pb + t * istr + 16 * kc),
                              ld32(pa + t * istr + 16 * kc + 8),
@@ -253,19 +191,21 @@ __device__ void gemm_item_any(float (&acc)[2][4], float (&pacc)[2][4],
     }
 }
 
+// a u32 (two bf16 values) at byte offset `off` of shared memory
+__device__ __forceinline__ void put(unsigned char* sm, uint32_t off,
+                                    uint32_t v) {
+  *reinterpret_cast<uint32_t*>(sm + off) = v;
+}
+
 // One GEMM phase of this CTA: its items of one m16 tile x kItemTiles n8
 // tiles over its warps, then the epilogue of each item.
 __device__ void gemm_phase(const int* ph, unsigned char* sm,
-                           const unsigned char* wslot, const Peers& peers,
-                           int rank, int cs, int nh, int warp, int lane) {
+                           const unsigned char* wslot, int nh, int warp,
+                           int lane) {
   const int zl = ph[kZl], M = nh * zl, mtiles = (M + 15) / 16;
-  const Slice sl = slice_of(ph, rank, cs);
-  const int nloc = sl.hi - sl.lo;
+  const int nloc = ph[kNcols] / 8;
   const int per_mt = (nloc + kItemTiles - 1) / kItemTiles;
-  const bool rows = ph[kSplit] != 0;
-  const int my_mt = rows ? (mtiles > rank ? (mtiles - rank + cs - 1) / cs : 0)
-                         : mtiles;
-  const int items = my_mt * per_mt;
+  const int items = mtiles * per_mt;
   const int taps = ph[kTaps], csteps = ph[kCsteps], ks = taps * csteps;
   const bool proj = ph[kProj] != 0;
   const int istr = ph[kInStride], irpc = ph[kInRpc], ibase = ph[kInBase];
@@ -277,7 +217,7 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
   const int ostr = ph[kOutStride], orpc = ph[kOutRpc];
   const int res = ph[kRes], relu = ph[kRelu];
   const int pool = ph[kPool], prpc = ph[kPoolRpc];
-  const int fs = nloc * 8;                 // the projection's slice width
+  const int fs = nloc * 8;                 // the projection's width
   float* P = reinterpret_cast<float*>(sm + ph[kP]);
   // the affines, after the weights in the slot
   const float* sc = reinterpret_cast<const float*>(
@@ -287,7 +227,7 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
   const int fsh = __ffs(fo) - 1;           // F is a power of two
 
   for (int it = warp; it < items; it += kWarps) {
-    const int mt = rows ? rank + cs * (it / per_mt) : it / per_mt;
+    const int mt = it / per_mt;
     const int j0 = kItemTiles * (it % per_mt);   // local n8 tile
     const bool two = kItemTiles == 2 && j0 + 1 < nloc;
     // rows 16 mt + g + 8 h of this lane (clamped to the last row where
@@ -334,7 +274,7 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (j == 1 && !two) break;             // warp-uniform
-      const int col = 8 * (sl.lo + j0 + j) + 2 * t4;
+      const int col = 8 * (j0 + j) + 2 * t4;
       const int fcol = kind == UPCONV ? col & (fo - 1) : col;
       const float s0 = sc[fcol], s1 = sc[fcol + 1];
       const float h0 = sc[fo + fcol], h1 = sc[fo + fcol + 1];
@@ -354,11 +294,11 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
               __fadd_rn(__bfloat162float(__float2bfloat16_rn(fmaxf(v1, 0.f))),
                         bf_hi(s)));
           if (valid) {
-            peers.put(sm, ph[kOut] + 2 * (row * ostr + fcol), y);
+            put(sm, ph[kOut] + 2 * (row * ostr + fcol), y);
             if (zo == 0)
-              peers.put(sm, ph[kOut] + 2 * ((row - 1) * ostr + fcol), 0u);
+              put(sm, ph[kOut] + 2 * ((row - 1) * ostr + fcol), 0u);
             if (zo == 2 * zl - 1)
-              peers.put(sm, ph[kOut] + 2 * ((row + 1) * ostr + fcol), 0u);
+              put(sm, ph[kOut] + 2 * ((row + 1) * ostr + fcol), 0u);
           }
           continue;
         }
@@ -370,7 +310,7 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
           v1 = __fadd_rn(v1, bf_hi(s));
         } else if (res == RES_PROJ) {
           const float2 s = *reinterpret_cast<const float2*>(
-              P + min(mm[h], M - 1) * fs + col - 8 * sl.lo);
+              P + min(mm[h], M - 1) * fs + col);
           v0 = __fadd_rn(v0, s.x);
           v1 = __fadd_rn(v1, s.y);
         }
@@ -380,11 +320,11 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
         }
         const uint32_t y = pack2(v0, v1);
         if (valid) {
-          peers.put(sm, ph[kOut] + 2 * (row * ostr + col), y);
+          put(sm, ph[kOut] + 2 * (row * ostr + col), y);
           if (z == 0)
-            peers.put(sm, ph[kOut] + 2 * ((row - 1) * ostr + col), 0u);
+            put(sm, ph[kOut] + 2 * ((row - 1) * ostr + col), 0u);
           if (z == zl - 1)
-            peers.put(sm, ph[kOut] + 2 * ((row + 1) * ostr + col), 0u);
+            put(sm, ph[kOut] + 2 * ((row + 1) * ostr + col), 0u);
         }
         if (pool >= 0) {                     // warp-uniform
           // rows m and m + 1 (an even m) are lanes l and l ^ 4
@@ -393,27 +333,25 @@ __device__ void gemm_phase(const int* ph, unsigned char* sm,
           const uint32_t pv = pack2(fmaxf(bf_lo(y), bf_lo(o)),
                                     fmaxf(bf_hi(y), bf_hi(o)));
           if (valid && (g & 1) == 0) {
-            peers.put(sm, pool + 2 * (prow * ostr + col), pv);
+            put(sm, pool + 2 * (prow * ostr + col), pv);
             if (zp == 0)
-              peers.put(sm, pool + 2 * ((prow - 1) * ostr + col), 0u);
+              put(sm, pool + 2 * ((prow - 1) * ostr + col), 0u);
             if (zp == zl / 2 - 1)
-              peers.put(sm, pool + 2 * ((prow + 1) * ostr + col), 0u);
+              put(sm, pool + 2 * ((prow + 1) * ostr + col), 0u);
           }
         }
-        if (proj && valid) {                 // the projection: float32, local
+        if (proj && valid) {                 // the projection: float32
           const float2 p = make_float2(
               __fadd_rn(__fmul_rn(pacc[j][2 * h], psc[col]), psc[fo + col]),
               __fadd_rn(__fmul_rn(pacc[j][2 * h + 1], psc[col + 1]),
                         psc[fo + col + 1]));
-          *reinterpret_cast<float2*>(P + mm[h] * fs + col - 8 * sl.lo) = p;
+          *reinterpret_cast<float2*>(P + mm[h] * fs + col) = p;
         }
       }
     }
   }
 }
 
-// kOne: a cluster of one CTA, its stores and barriers local at compile time
-template <bool kOne>
 __global__ void __launch_bounds__(kThreads, 1)
 c2cnet_kernel(const float* __restrict__ cols,
               const unsigned char* __restrict__ wfrag,
@@ -424,9 +362,7 @@ c2cnet_kernel(const float* __restrict__ cols,
   extern __shared__ __align__(128) unsigned char sm[];
   __shared__ int tab[kMaxPhases * kNF];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cs = kOne ? 1 : (int)cluster_size();
-  const int rank = kOne ? 0 : (int)cluster_rank();
-  const int n0 = (blockIdx.x / cs) * cpc, nh = min(cpc, N - n0);
+  const int n0 = blockIdx.x * cpc, nh = min(cpc, N - n0);
   const uint32_t sbase = smem_u32(sm);
   const int ngemm = nph - 1;
 
@@ -442,40 +378,34 @@ c2cnet_kernel(const float* __restrict__ cols,
   if (tid == 0)
     for (int p = 0; p < depth && p < ngemm; ++p)
       issue(&tab[p * kNF], sbase + p * slot_bytes, sbase + bar_off + 8 * p,
-            wfrag, aff, rank, cs);
-  // the cluster's columns, rounded to bf16: (Z + 6) rows of x_stride
+            wfrag, aff);
+  // the CTA's columns, rounded to bf16: (Z + 6) rows of x_stride
   bf16* X = reinterpret_cast<bf16*>(sm + x_off);
   const float* src = cols + (long long)n0 * Z * J;
   for (int i = tid; i < nh * Z * J; i += kThreads) {
     const int n = i / (Z * J), r = i - n * Z * J, z = r / J, c = r - z * J;
     X[(n * (Z + 6) + 3 + z) * x_stride + c] = __float2bfloat16_rn(src[i]);
   }
-  Peers peers;
-  peers.cs = cs;
-#pragma unroll
-  for (int q = 0; q < kMaxCs; ++q)
-    peers.base[q] = q < cs ? peer_addr(sbase, q) : 0u;
-  phase_sync(cs);              // every CTA of the cluster runs, zeroed
+  __syncthreads();
 
   for (int p = 0; p < ngemm; ++p) {
     const int slot = p % depth;
     mbar_wait(sbase + bar_off + 8 * slot, (p / depth) & 1);
-    gemm_phase(&tab[p * kNF], sm, sm + slot * slot_bytes, peers, rank, cs,
-               nh, warp, lane);
-    phase_sync(cs);
+    gemm_phase(&tab[p * kNF], sm, sm + slot * slot_bytes, nh, warp, lane);
+    __syncthreads();
     // the last warp has the fewest items: it refills the slot
     if (tid == kThreads - 32 && p + depth < ngemm)
       issue(&tab[(p + depth) * kNF], sbase + slot * slot_bytes,
-            sbase + bar_off + 8 * slot, wfrag, aff, rank, cs);
+            sbase + bar_off + 8 * slot, wfrag, aff);
   }
 
-  // the 1x1 output conv, float32, its rows split over the cluster
+  // the 1x1 output conv, float32
   const int* ph = &tab[ngemm * kNF];
   const int zl = ph[kZl], M = nh * zl, cin = 16 * ph[kCsteps];
   const bf16* in = reinterpret_cast<const bf16*>(sm + ph[kIn]);
   const bf16* w = wflat + ph[kW];
   const float a = aff[ph[kAff]], b = aff[ph[kAff] + 1];
-  for (int m = rank + cs * tid; m < M; m += cs * kThreads) {
+  for (int m = tid; m < M; m += kThreads) {
     const int n = m / zl, z = m - n * zl;
     const bf16* x = in + (n * ph[kInRpc] + ph[kInBase] + z) * ph[kInStride];
     float acc = 0.f;
@@ -490,47 +420,29 @@ c2cnet_kernel(const float* __restrict__ cols,
 // cols (N, Z, J) float32; wfrag the GEMM weights in fragment order; wflat
 // the flat weights (the output conv's at the final phase's w_off); aff the
 // flat affines; table the plan's phases (nph x 26 int32); out (N, Z)
-// float32. The launch is ceil(N / cpc) clusters of cs CTAs, each with
+// float32. The launch is ceil(N / cpc) CTAs of cpc columns, each with
 // smem_bytes of dynamic shared memory (ops/kernels/c2cnet.py::c2cnet_plan).
 FVP_API int fvp_c2cnet(const float* cols, const void* wfrag, const void* wflat,
                        const float* aff, const int* table, float* out, int N,
-                       int Z, int J, int cs, int cpc, int nph, int depth,
+                       int Z, int J, int cpc, int nph, int depth,
                        int slot_bytes, int bar_off, int x_off, int x_stride,
                        int smem_bytes, void* stream) {
   if (N <= 0 || Z <= 0 || Z % 4 || J <= 0 || cpc <= 0 || nph < 2 ||
-      nph > kMaxPhases || (cs != 1 && cs != 2 && cs != 4) || depth < 2 ||
-      depth > kMaxDepth || slot_bytes % 128 || x_off % 16 ||
-      smem_bytes % 16 || smem_bytes < x_off)
+      nph > kMaxPhases || depth < 1 || depth > kMaxDepth || slot_bytes % 128 ||
+      x_off % 16 || smem_bytes % 16 || smem_bytes < x_off)
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;
   if (smem_bytes > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        c2cnet_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(
+        c2cnet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(c2cnet_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem_bytes;
   }
-  const int clusters = (N + cpc - 1) / cpc;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * cs);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, cs == 1 ? c2cnet_kernel<true> : c2cnet_kernel<false>, cols, static_cast<const unsigned char*>(wfrag),
-      static_cast<const __nv_bfloat16*>(wflat), aff, table, out, N, Z, J,
-      cpc, nph, depth, slot_bytes, bar_off, x_off, x_stride, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
+  c2cnet_kernel<<<(N + cpc - 1) / cpc, kThreads, smem_bytes,
+                  (cudaStream_t)stream>>>(
+      cols, static_cast<const unsigned char*>(wfrag),
+      static_cast<const __nv_bfloat16*>(wflat), aff, table, out, N, Z, J, cpc,
+      nph, depth, slot_bytes, bar_off, x_off, x_stride, smem_bytes);
   return (int)cudaGetLastError();
 }

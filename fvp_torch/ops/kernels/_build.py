@@ -37,7 +37,7 @@ SIGNATURES = {
     "fvp_conv_bf16": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 9 + [_P],
     "fvp_conv_wgmma": [_P] * 4 + [_I, _P] + [_I] * 15 + [_P],
     "fvp_maxpool2_bf16": [_P, _P] + [_I] * 4 + [_P],
-    "fvp_c2cnet": [_P] * 6 + [_I] * 12 + [_P],
+    "fvp_c2cnet": [_P] * 6 + [_I] * 11 + [_P],
 }
 
 _lib = None

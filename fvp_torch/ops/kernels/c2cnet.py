@@ -5,28 +5,22 @@ Replaces fvp_tpu/ops/pallas/hourglass.py::pallas_c2cnet, which runs the
 whole 1D hourglass for all columns in one grid step with the items on the
 sublanes, so that each layer is one matrix product over all of them. The
 kernel does the same on Hopper's tensor cores: one launch, and each layer
-one implicit GEMM over every column of a cluster (rows: column x height,
+one implicit GEMM over every column of a CTA (rows: column x height,
 K: taps x input channels, N: output channels) on `mma.sync` m16n8k16
 (bf16 operands, float32 sums). A ResBlock's 1x1 projection shares the
 GEMM of its first conv (extra B columns on the centre tap, their own
 epilogue), and the 2x2 max pool runs in the epilogue of the conv before
 it, so the 23 layers take 19 phases with a barrier after each.
 
-The work is split over a thread-block cluster of `cs` CTAs (1, 2 or 4)
-along the output channels (along the rows where a layer has fewer 8-wide
-column tiles than CTAs). The default is a cluster of one CTA, the fastest
-at the flagship's 10 columns (5 CTAs of 2 columns): its stores and
-barriers stay local, where a larger cluster pays for its distributed
-stores and cluster barriers more than it gains from splitting a phase. Each CTA holds every activation of its cluster's
-columns in shared memory (bf16, (column, height + halo, channels + 8)
-rows, zero halo rows, so a tap is a row offset), streams its slice of
-each layer's weights into a ring of `depth` slots with bulk copies (the
-next layers' weights are in flight while this one computes), and writes
-its output slice into every CTA's activations through distributed shared
-memory before the cluster barrier; each slot also brings the phase's
-affines. `c2cnet_plan` is the tiling and the
-phase table the kernel walks, in Python on shapes alone, so that the CPU
-tests can check it.
+Each CTA takes a few columns (at the flagship's 10 columns, 5 CTAs of 2)
+and holds all of their activations in shared memory (bf16, (column,
+height + halo, channels + 8) rows, zero halo rows, so a tap is a row
+offset); it streams each layer's weights and affines into a ring of
+two slots with bulk copies (the next layer's weights are in flight while
+this one computes; one slot where a tall column leaves no room for two)
+and ends each phase with a block barrier.
+`c2cnet_plan` is the tiling and the phase table the kernel walks, in
+Python on shapes alone, so that the CPU tests can check it.
 
 Numerics are the TPU kernel's (`_c2c_kernel`): the input rounds to bf16;
 each ResBlock's first conv rounds relu(aff(conv)); a projection skip stays
@@ -64,11 +58,6 @@ THREADS = 256
 ITEM_TILES = 2           # n8 tiles of a warp's item (csrc kItemTiles)
 MAX_SMEM = 232448        # shared memory one block may use
 STATIC_SMEM = 24 * 26 * 4  # the kernel's static copy of the phase table
-CLUSTER_SIZES = (1, 2, 4)
-# the plan's default cluster size: the fastest of CLUSTER_SIZES at the
-# flagship's (10, 20, 15) columns (chip_smoke.py times each): a cluster of
-# one CTA, whose stores and barriers stay local
-DEFAULT_CS = 1
 FRAG_BYTES = 256         # one n8 x k16 B fragment of a warp: 32 lanes x 8 B
 
 # The fields of one phase of the kernel's table, in the order of the enum
@@ -87,7 +76,6 @@ FIELDS = (
     "relu",
     "pool_off", "pool_rpc",  # the pooled output (-1: none), rows/column
     "proj",       # 1: a 1x1 projection shares this GEMM (output to P)
-    "split",      # SPLIT_COLS or SPLIT_ROWS over the cluster
     "w_off", "pw_off",  # byte offsets into w_frag (final: w_flat index)
     "aff_off", "paff_off",  # float offsets into aff_flat
     "p_off")      # the float32 projection buffer
@@ -95,7 +83,6 @@ NF = 26                  # ints per phase in the table
 assert len(FIELDS) <= NF
 CONV, UPCONV, FINAL = 0, 1, 2
 RES_NONE, RES_BF16, RES_PROJ = 0, 1, 2
-SPLIT_COLS, SPLIT_ROWS = 0, 1
 
 
 def layer_shapes(J: int) -> list[tuple[str, int, int, int]]:
@@ -135,7 +122,7 @@ def fragments(w: torch.Tensor, cin_pad: int) -> torch.Tensor:
     (g, t) holding K rows 16 s + 2 t + {0, 1, 8, 9} of column 8 n + g,
     K = tap x cin_pad (zero rows where a tap has fewer channels). One
     column tile's fragments are contiguous, so a CTA's slice of columns
-    is one bulk copy."""
+    is contiguous."""
     T, cin, nc = w.shape
     wp = w.new_zeros((T, cin_pad, nc))
     wp[:, :cin] = w
@@ -173,18 +160,17 @@ def pack_fragments(layers: list[dict], J: int) -> torch.Tensor:
 # -- the tiling -----------------------------------------------------------------
 
 class C2CPlan(NamedTuple):
-    """How one launch runs C2CNet on (N, Z, J) columns: `clusters` of `cs`
-    CTAs, each cluster `cols` columns (the last may have fewer); a ring of
-    `depth` weight slots of `slot_bytes` at shared offset 0, its mbarriers
-    at `bar_off`, then the activation buffers (`buffers`: name -> (offset,
+    """How one launch runs C2CNet on (N, Z, J) columns: `ctas` CTAs of
+    `cols` columns each (the last may have fewer); a ring of `depth`
+    weight slots of `slot_bytes` at shared offset 0, its mbarriers at
+    `bar_off`, then the activation buffers (`buffers`: name -> (offset,
     bytes)); `smem` bytes in all. `phases` is the table the kernel walks
     (NF ints each): 19 GEMM phases and the output conv."""
     N: int
     Z: int
     J: int
-    cs: int
     cols: int
-    clusters: int
+    ctas: int
     depth: int
     slot_bytes: int
     bar_off: int
@@ -196,7 +182,8 @@ class C2CPlan(NamedTuple):
 
     @property
     def barriers(self) -> int:
-        """Cluster barriers per launch: one at the start, one per GEMM."""
+        """Block barriers of a CTA after its set-up: one after the input,
+        one per GEMM phase."""
         return len(self.phases)
 
 
@@ -214,41 +201,33 @@ def _align(n: int, a: int = 128) -> int:
     return -(-n // a) * a
 
 
-def _slice(ncols: int, split: int, rank: int, cs: int) -> tuple[int, int]:
-    """The column tiles [lo, hi) of CTA `rank` (the kernel's `slice`)."""
-    nt = ncols // 8
-    if split == SPLIT_ROWS:
-        return 0, nt
-    return rank * nt // cs, (rank + 1) * nt // cs
+def phase_weight_bytes(ph: dict) -> tuple[int, int]:
+    """Bytes of a GEMM phase's weights that a CTA copies: its conv's and
+    its projection's."""
+    nt = ph["ncols"] // 8
+    return (nt * ph["taps"] * ph["csteps"] * FRAG_BYTES,
+            nt * ph["csteps"] * FRAG_BYTES if ph["proj"] else 0)
 
 
-def phase_weight_bytes(ph: dict, rank: int, cs: int) -> tuple[int, int]:
-    """Bytes of a GEMM phase's weights that CTA `rank` copies: its conv's
-    slice and its projection's."""
-    lo, hi = _slice(ph["ncols"], ph["split"], rank, cs)
-    w = (hi - lo) * ph["taps"] * ph["csteps"] * FRAG_BYTES
-    return w, (hi - lo) * ph["csteps"] * FRAG_BYTES if ph["proj"] else 0
-
-
-def phase_slot_bytes(ph: dict, rank: int, cs: int) -> int:
+def phase_slot_bytes(ph: dict) -> int:
     """A ring slot's bytes for a GEMM phase: the weights, then the whole
     (2, F) float32 affine of the conv and of its projection."""
-    return sum(phase_weight_bytes(ph, rank, cs)) + \
+    return sum(phase_weight_bytes(ph)) + \
         8 * ph["fo"] * (2 if ph["proj"] else 1)
 
 
-def _layout(cols: int, Z: int, J: int, cs: int, depth: int, slot: int):
+def _layout(cols: int, Z: int, J: int, depth: int, slot: int):
     bar_off = depth * slot
     off = _align(bar_off + 8 * depth)
     bufs = {}
     for name, elems in _col_bytes(Z, J).items():
         bufs[name] = (off, _align(cols * elems * 2))
         off += bufs[name][1]
-    bufs["P"] = (off, _align(cols * Z * _C0 // cs * 4))
+    bufs["P"] = (off, _align(cols * Z * _C0 * 4))
     return bar_off, bufs, off + bufs["P"][1]
 
 
-def _phases(Z: int, J: int, cs: int, bufs: dict) -> list[dict]:
+def _phases(Z: int, J: int, bufs: dict) -> list[dict]:
     """The kernel's walk of the net: (buffer, level) of every input and
     output, the fused projections and pools, the weights' offsets."""
     shapes = layer_shapes(J)
@@ -283,14 +262,12 @@ def _phases(Z: int, J: int, cs: int, bufs: dict) -> list[dict]:
             out_stride=stride(f), out_rpc=zo + 2, res=res,
             res_off=bufs[res_buf][0] if res == RES_BF16 else 0,
             relu=int(relu), pool_off=-1, pool_rpc=0, proj=0,
-            split=SPLIT_COLS if (nc // 8) % cs == 0 else SPLIT_ROWS,
             w_off=woff[i], pw_off=0, aff_off=aoff[i], paff_off=0,
             p_off=bufs["P"][0])
         if pool is not None:
             ph.update(pool_off=bufs[pool][0], pool_rpc=zl // 2 + 2)
         if proj is not None:
             j = idx[proj]
-            assert ph["split"] == SPLIT_COLS
             ph.update(proj=1, pw_off=woff[j], paff_off=aoff[j])
         chans[dst] = f
         if pool is not None:
@@ -319,65 +296,51 @@ def _phases(Z: int, J: int, cs: int, bufs: dict) -> list[dict]:
     fin = dict.fromkeys(FIELDS, 0)
     fin.update(kind=FINAL, in_off=bufs["A"][0], in_stride=stride(_C0),
                in_rpc=Z + 2, in_base=1, zl=Z, taps=1, csteps=_C0 // 16,
-               ncols=1, fo=1, pool_off=-1, split=SPLIT_ROWS,
+               ncols=1, fo=1, pool_off=-1,
                w_off=sum(t * ci * f for _, t, ci, f in shapes[:-1]),
                aff_off=aoff[-1])
     return out + [fin]
 
 
 @functools.lru_cache(maxsize=None)
-def c2cnet_plan(N: int, Z: int, J: int, cs: int | None = None,
+def c2cnet_plan(N: int, Z: int, J: int,
                 depth: int | None = None) -> C2CPlan:
-    """The tiling of one launch: the cluster size `cs` (DEFAULT_CS
-    unless given, or the largest other size where one column of height Z
-    does not fit beside DEFAULT_CS's ring), the columns per cluster (as
-    many as one CTA's shared memory holds beside a ring of `depth` slots,
-    then balanced over the clusters), the ring's depth (3 where that needs
-    no more clusters than 2, unless given) and the shared-memory offsets.
-    Z % 4 == 0."""
-    if cs is None:                 # the default, else the next that fits
-        order = sorted(CLUSTER_SIZES, key=lambda c: (c != DEFAULT_CS, -c))
-        for c in order:
-            try:
-                return c2cnet_plan(N, Z, J, c, depth)
-            except ValueError:
-                if c == order[-1]:
-                    raise
-    if cs not in CLUSTER_SIZES:
-        raise ValueError(f"c2cnet_plan: cs = {cs}, not in {CLUSTER_SIZES}")
+    """The tiling of one launch: the columns per CTA (as many as one CTA's
+    shared memory holds beside a ring of `depth` slots, then balanced over
+    the CTAs), the ring's depth (unless given: 2, or 1 where one column
+    of height Z does not fit beside two slots, as from Z = 56 at J = 15;
+    three ~99 KB slots never fit) and the shared-memory offsets. Z % 4 ==
+    0."""
     if N < 1 or Z < 4 or Z % 4 or J < 1:
         raise ValueError(f"c2cnet_plan: N = {N}, Z = {Z} (a multiple of "
                          f"4), J = {J}")
     budget = MAX_SMEM - STATIC_SMEM
-    probe = _phases(Z, J, cs, {k: (0, 0) for k in
-                               ("X", "A", "B", "H", "S1", "S2", "P")})
-    slot = _align(max(phase_slot_bytes(ph, r, cs)
-                      for ph in probe[:-1] for r in range(cs)))
+    probe = _phases(Z, J, {k: (0, 0) for k in
+                           ("X", "A", "B", "H", "S1", "S2", "P")})
+    slot = _align(max(phase_slot_bytes(ph) for ph in probe[:-1]))
 
     def most_cols(d):
         c = 0
-        while c < N and _layout(c + 1, Z, J, cs, d, slot)[2] <= budget:
+        while c < N and _layout(c + 1, Z, J, d, slot)[2] <= budget:
             c += 1
         return c
 
     if depth is None:
-        c2, c3 = most_cols(2), most_cols(3)
-        depth = 3 if c3 >= 1 and -(-N // c3) == -(-N // max(c2, 1)) else 2
-    if depth not in (2, 3):
-        raise ValueError(f"c2cnet_plan: depth = {depth}, not 2 or 3")
+        depth = 2 if most_cols(2) >= 1 else 1
+    if depth not in (1, 2):
+        raise ValueError(f"c2cnet_plan: depth = {depth}, not 1 or 2")
     cmax = most_cols(depth)
     if cmax < 1:
         raise ValueError(f"c2cnet_plan: one column of height {Z} does not "
                          f"fit in shared memory beside the weight ring")
-    clusters = -(-N // cmax)
-    cols = -(-N // clusters)
-    bar_off, bufs, smem = _layout(cols, Z, J, cs, depth, slot)
-    phases = _phases(Z, J, cs, bufs)
+    ctas = -(-N // cmax)
+    cols = -(-N // ctas)
+    bar_off, bufs, smem = _layout(cols, Z, J, depth, slot)
+    phases = _phases(Z, J, bufs)
     table = tuple(tuple(ph[k] for k in FIELDS) + (0,) * (NF - len(FIELDS))
                   for ph in phases)
-    return C2CPlan(N, Z, J, cs, cols, clusters, depth, slot, bar_off,
-                   bufs["X"][0], _pad16(J) + 8, smem,
-                   tuple(sorted(bufs.items())), table)
+    return C2CPlan(N, Z, J, cols, ctas, depth, slot, bar_off, bufs["X"][0],
+                   _pad16(J) + 8, smem, tuple(sorted(bufs.items())), table)
 
 
 def phase_dicts(plan: C2CPlan) -> list[dict]:
@@ -406,12 +369,10 @@ def c2cnet_plain(packed: dict, cols: torch.Tensor) -> torch.Tensor:
 
 # -- kernel launch ------------------------------------------------------------
 
-def c2cnet(packed: dict, cols: torch.Tensor, *,
-           cs: int | None = None) -> torch.Tensor:
+def c2cnet(packed: dict, cols: torch.Tensor) -> torch.Tensor:
     """C2CNet on proposal z-columns (N, Z, J) float32 -> (N, Z) float32
-    height heatmaps: one kernel launch for a CUDA tensor (on clusters of
-    `cs` CTAs, the plan's default unless given), the plain version for a
-    CPU tensor. Z must be a multiple of 4 (two pooling levels)."""
+    height heatmaps: one kernel launch for a CUDA tensor, the plain version
+    for a CPU tensor. Z must be a multiple of 4 (two pooling levels)."""
     if not cols.is_cuda:
         return c2cnet_plain(packed, cols)
     N, Z, J = cols.shape
@@ -429,7 +390,7 @@ def c2cnet(packed: dict, cols: torch.Tensor, *,
           dtype=torch.bfloat16, device=cols.device)
     out = torch.empty((N, Z), dtype=torch.float32, device=cols.device)
     if N:
-        launch(packed, cols, out, c2cnet_plan(N, Z, J, cs))
+        launch(packed, cols, out, c2cnet_plan(N, Z, J))
     return out
 
 
@@ -438,6 +399,6 @@ def launch(packed: dict, cols: torch.Tensor, out: torch.Tensor,
     """One launch of the kernel on checked tensors."""
     C2C(ptr(cols), ptr(packed["w_frag"]), ptr(packed["w_flat"]),
         ptr(packed["aff_flat"]), ptr(_table(plan, cols.device)), ptr(out),
-        plan.N, plan.Z, plan.J, plan.cs, plan.cols, len(plan.phases),
+        plan.N, plan.Z, plan.J, plan.cols, len(plan.phases),
         plan.depth, plan.slot_bytes, plan.bar_off, plan.x_off, plan.x_stride,
         plan.smem)

@@ -113,9 +113,11 @@ _COUNTERS: dict = {}
 
 
 def _counters(device, n: int) -> torch.Tensor:
-    """Zeroed per-map counters of the last-block mean; the kernel leaves
-    them zero."""
-    key = str(device)
+    """Zeroed per-map counters of the last-block mean, one buffer for each
+    (device, stream): the kernel leaves them zero, and launches on one
+    stream run in order, so each launch finds its stream's counters at
+    zero. Two streams never share counters."""
+    key = (str(device), torch.cuda.current_stream(device).cuda_stream)
     if key not in _COUNTERS or _COUNTERS[key].numel() < n:
         _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
                                      device=device)
@@ -135,11 +137,9 @@ def weightnet_pool_plain(planes: torch.Tensor, packed: dict) -> torch.Tensor:
     return h.mean(dim=(2, 3)).reshape(n, j, C)
 
 
-def weightnet_pool(planes: torch.Tensor, packed: dict, *,
-                   rows: int | None = None) -> torch.Tensor:
+def weightnet_pool(planes: torch.Tensor, packed: dict) -> torch.Tensor:
     """WeightNet's conv front end: (N, A, B, J) plane heatmaps -> (N, J, C)
-    pooled features (on the card in bands of `rows` map rows, the plan's
-    unless given)."""
+    pooled features."""
     if not planes.is_cuda:
         return weightnet_pool_plain(planes, packed)
     N, A, B, J = planes.shape
@@ -155,7 +155,7 @@ def weightnet_pool(planes: torch.Tensor, packed: dict, *,
     out = torch.empty((N, J, C), dtype=torch.float32, device=planes.device)
     if N == 0:
         return out
-    launch(planes, packed, out, weightnet_plan(N, A, B, J, rows))
+    launch(planes, packed, out, weightnet_plan(N, A, B, J))
     return out
 
 

@@ -7,7 +7,10 @@ inputs (flagship widths, seeded weights, frame 0's heatmaps).
     python -m fvp_torch.tools.kernel_parts --kernel centernet
         [--variants shipped,no_compute,...]
     python -m fvp_torch.tools.kernel_parts --kernel c2cnet|weightnet_pool
-        --set old --source FILE
+        [--set old --source FILE] [--rows R]
+    python -m fvp_torch.tools.kernel_parts --kernel c2cnet --set trace
+    python -m fvp_torch.tools.kernel_parts --kernel c2cnet --set flips
+        --source FILE [--trials 25]
 
 Each variant is the source with text substitutions (each must match once,
 or the script fails) and its own nvcc flags, built by its own nvcc (all in
@@ -22,21 +25,35 @@ only their device time counts.
   `--set new` the tree's pixel-major kernel, on its layout made once
   (the planes kernel alone).
 - centernet, the one cooperative launch at (1, 80, 80, 15).
-- c2cnet and weightnet_pool, `--set new`: the tree's kernels through
-  their wrappers (`--cs`, `--rows` pass a cluster size or band height),
-  with the GEMM, the weight copies, the cluster barrier (a block barrier
-  instead), the epilogue's stores or the zeroing off (c2cnet), and the
-  compute, the tile load, the affine (on each conv output, where the
-  kernel now takes it after the max), the register budget (two blocks per
-  SM) or the channel group (8 a thread) changed (weightnet_pool);
+- c2cnet and weightnet_pool, `--set new`: the tree's kernels on their
+  plans (`--rows` gives weightnet_pool's band height), with the GEMM, the
+  weight copies, the epilogue's stores or the zeroing off, the generic
+  GEMM loop or single n8 tiles on 16 warps (c2cnet), and the compute, the
+  tile load, the affine (on each conv output, where the kernel now takes
+  it after the max), the register budget (two blocks per SM) or the
+  channel group (8 a thread) changed (weightnet_pool);
 - c2cnet and weightnet_pool, `--set old`: the earlier kernels (one block per
   z-column with scalar FMAs; one block per (n, j) map with strided
   gathers; `git show <commit>:fvp_torch/csrc/c2cnet.cu > FILE`),
   through their old entry points: C2CNet on frame 0's z-columns (10, 20,
   15) of the `fuse_p2p` predictor, weightnet_pool on P2PNet's output of
-  K2's planes (30, 64, 64, 15).
+  K2's planes (30, 64, 64, 15);
+- c2cnet, `--set trace`: the tree's kernel with clock64() stamps, on
+  (10, 20, 15) random columns; for CTA 0 and each GEMM phase the cycles
+  from the phase's start (after its weight wait) to the end of the first
+  item's GEMM and of all items, for warp 0 and the last warp, and to the
+  end of the phase's barrier;
+- c2cnet, `--set flips`: the tree's kernel (the plan's ring and a ring of
+  one slot) and the one of FILE (an earlier source with the entry point
+  fvp_c2cnet(cols, w, aff, out, N, Z, J, stream)) against the plain
+  version over `--trials` seeded random inputs at the card test's shapes
+  (tests/test_torch_kernels_cuda.py::test_c2cnet_kernel): per shape and
+  kernel the largest error over the output's scale and how many inputs
+  land above the test's 5e-3 and above 0 (bf16 roundings that flip where
+  two float32 sums in another order straddle a rounding boundary, carried
+  on through the net).
 
-Prints one JSON line per variant and appends them to
+Prints one JSON line per variant (or row) and appends them to
 `chiprun_out/kernel_parts.json`.
 """
 
@@ -140,13 +157,8 @@ C2C_NEW = [
     ("no_weight_copies", [(r"  mbar_expect_tx\(bar, b1 \+ b2 \+ ba \* \(ph\[kProj\] \? 2 "
                            r": 1\)\);", "  mbar_arrive(bar);\n  return;")],
      []),
-    ("cta_barrier", [(r"  else\n    cluster_sync\(\);\n\}", "  else\n    __syncthreads();\n}")],
-     []),
-    ("no_stores", [(r"      if \(q < cs\) st_cluster\(base\[q\] \+ off, v\);",
-                    "      if (q < cs && v == 0xdeadbeefu) "
-                    "st_cluster(base[q] + off, v);"),
-                   (r"      \*reinterpret_cast<uint32_t\*>\(sm \+ off\) = v;",
-                    "      if (v == 0xdeadbeefu) "
+    ("no_stores", [(r"  \*reinterpret_cast<uint32_t\*>\(sm \+ off\) = v;",
+                    "  if (v == 0xdeadbeefu) "
                     "*reinterpret_cast<uint32_t*>(sm + off) = v;")], []),
     ("generic_gemm", [(r"    switch \(key\) \{", "    switch (key + 4096) {")],
      []),
@@ -181,11 +193,44 @@ WEIGHTNET_NEW = [
                 (r"constexpr int kMaxThreads = 512;",
                  "constexpr int kMaxThreads = 384;")], []),
 ]
+_W = "lane == 0 && blockIdx.x == 0 && (warp == 0 || warp == kWarps - 1)"
+C2C_TRACE = [("trace", [
+    (re.escape("__device__ void gemm_phase(const int* ph, unsigned char* sm,"),
+     "__device__ long long g_st[2][3];\n"
+     "__device__ void gemm_phase(const int* ph, unsigned char* sm,"),
+    (re.escape("  const float* psc = sc + 2 * fo;\n"),
+     "  const float* psc = sc + 2 * fo;\n"
+     f"  if ({_W}) g_st[warp ? 1 : 0][0] = clock64();\n"),
+    (re.escape("    // epilogue: rows mm[h], columns"),
+     f"    if ({_W} && it < kWarps) g_st[warp ? 1 : 0][1] = clock64();\n"
+     "    // epilogue: rows mm[h], columns"),
+    (re.escape("= p;\n        }\n      }\n    }\n  }\n}\n"),
+     "= p;\n        }\n      }\n    }\n  }\n"
+     f"  if ({_W}) g_st[warp ? 1 : 0][2] = clock64();\n}}\n"),
+    (re.escape("  const int ngemm = nph - 1;\n"),
+     "  const int ngemm = nph - 1;\n"
+     "  __shared__ long long ts[kMaxPhases * 8];\n"
+     "  const long long t_start = clock64();\n"),
+    (re.escape("nh, warp, lane);\n    __syncthreads();\n"),
+     "nh, warp, lane);\n    __syncthreads();\n"
+     "    if (tid == 0) {\n      ts[8 * p + 7] = clock64();\n"
+     "      for (int i = 0; i < 6; ++i)\n"
+     "        ts[8 * p + i] = ((volatile long long*)g_st)[i];\n    }\n"),
+    (re.escape("    out[(long long)(n0 + n) * Z + z] = __fadd_rn(__fmul_rn("
+               "acc, a), b);\n  }\n"),
+     "    out[(long long)(n0 + n) * Z + z] = __fadd_rn(__fmul_rn(acc, a), "
+     "b);\n  }\n  __syncthreads();\n"
+     "  if (tid == 0 && blockIdx.x == 0)\n"
+     "    for (int i = 0; i < 8 * ngemm && i < N * Z; ++i)\n"
+     "      out[i] = (float)(ts[i] - t_start);\n"),
+], [])]
 SETS = {("person_planes", "old"): PERSON_OLD,
         ("person_planes", "new"): PERSON_NEW,
         ("centernet", "new"): CENTERNET,
         ("c2cnet", "old"): C2C_OLD,
         ("c2cnet", "new"): C2C_NEW,
+        ("c2cnet", "trace"): C2C_TRACE,
+        ("c2cnet", "flips"): [("old", [], [])],
         ("weightnet_pool", "old"): WEIGHTNET_OLD,
         ("weightnet_pool", "new"): WEIGHTNET_NEW}
 OUT = Path("build") / "parts"
@@ -364,7 +409,7 @@ def c2cnet_call(kind):
         def make_new(lib):
             def run():
                 _build._lib = lib
-                kc2c.c2cnet(pc, cols, cs=OPTIONS.get("cs"))
+                kc2c.c2cnet(pc, cols)
             return run
         return make_new
 
@@ -413,10 +458,12 @@ def weightnet_call(kind):
     if kind == "new":
         from fvp_torch.ops.kernels import weightnet as kwn
 
+        plan = kwn.weightnet_plan(N, A, B, J, OPTIONS.get("rows"))
+
         def make_new(lib):
             def run():
                 _build._lib = lib
-                kwn.weightnet_pool(feats, pw, rows=OPTIONS.get("rows"))
+                kwn.launch(feats, pw, out, plan)
             return run
         return make_new
 
@@ -429,7 +476,92 @@ def weightnet_call(kind):
     return make
 
 
-OPTIONS: dict = {}       # --cs, --rows of the tree's wrappers
+def _card_test_packed(J: int):
+    """The card test's C2CNet weights (tests/test_torch_kernels_cuda.py::
+    _fuse_model)."""
+    from chip_smoke import random_state_dict
+    from fvp_torch.config import FVPConfig
+    from fvp_torch.engine.packing import pack_model
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+
+    cfg = FVPConfig(num_joints=J, num_views=3, heatmap_size=(60, 32),
+                    voxels_per_axis=(16, 16, 8), ind_voxels_per_axis=(32,) * 3,
+                    max_people=3, backbone="", fuse_p2p=True)
+    model = FasterVoxelPose(cfg)
+    model.load_state_dict(random_state_dict(model, seed=J))
+    return pack_model(model.to("cuda").eval())["c2c_net"]
+
+
+def c2cnet_trace(lib) -> list[dict]:
+    """The stamped build's cycles per phase of CTA 0 (`--set trace`)."""
+    import torch
+
+    from fvp_torch.ops.kernels import c2cnet as kc2c
+
+    packed = _card_test_packed(15)
+    cols = torch.rand((10, 20, 15), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+    _build._lib = lib
+    for _ in range(3):
+        out = kc2c.c2cnet(packed, cols)
+    torch.cuda.synchronize()
+    v = out.reshape(-1).tolist()
+    rows = []
+    for p in range(len(kc2c.c2cnet_plan(10, 20, 15).phases) - 1):
+        s = v[8 * p:8 * p + 8]
+        rows.append({"kernel": "c2cnet", "set": "trace", "phase": p,
+                     "start": s[0], "w0_gemm": s[1] - s[0],
+                     "w0_items": s[2] - s[0], "wlast_gemm": s[4] - s[3],
+                     "wlast_items": s[5] - s[3], "end": s[7] - s[0]})
+    return rows
+
+
+FLIP_SHAPES = [(13, 8, 15), (7, 12, 17), (10, 20, 15), (40, 20, 15),
+               (3, 96, 15)]
+
+
+def c2cnet_flips(old, trials: int) -> list[dict]:
+    """The tree's kernel and FILE's against the plain version over seeded
+    inputs (`--set flips`)."""
+    import numpy as np
+    import torch
+
+    from fvp_torch.ops.kernels import c2cnet as kc2c
+
+    _p, _i = ctypes.c_void_p, ctypes.c_int
+    call = _old_entry(old, "fvp_c2cnet", [_p] * 4 + [_i] * 3 + [_p])
+    rows = []
+    for N, Z, J in FLIP_SHAPES:
+        packed = _card_test_packed(J)
+        plans = {"tree": kc2c.c2cnet_plan(N, Z, J),
+                 "tree_depth1": kc2c.c2cnet_plan(N, Z, J, 1)}
+        errs: dict[str, list[float]] = {}
+        for seed in range(trials):
+            cols = torch.as_tensor(np.random.RandomState(seed).rand(N, Z, J)
+                                   .astype(np.float32), device="cuda")
+            ref = kc2c.c2cnet_plain(packed, cols)
+            outs = {}
+            for k, plan in plans.items():
+                outs[k] = torch.empty((N, Z), device="cuda")
+                kc2c.launch(packed, cols, outs[k], plan)
+            outs["old"] = torch.empty((N, Z), device="cuda")
+            call(cols.data_ptr(), packed["w_flat"].data_ptr(),
+                 packed["aff_flat"].data_ptr(), outs["old"].data_ptr(), N, Z,
+                 J)
+            scale = float(ref.abs().max())
+            for k, v in outs.items():
+                errs.setdefault(k, []).append(
+                    float((v - ref).abs().max()) / scale)
+        for k, e in errs.items():
+            rows.append({"kernel": "c2cnet", "set": "flips",
+                         "shape": [N, Z, J], "which": k, "trials": trials,
+                         "max_rel_err": max(e),
+                         "above_5e-3": sum(x > 5e-3 for x in e),
+                         "above_0": sum(x > 0 for x in e)})
+    return rows
+
+
+OPTIONS: dict = {}       # --rows of weightnet_pool's plan
 CALLS = {"person_planes": person_call, "centernet": centernet_call,
          "c2cnet": c2cnet_call, "weightnet_pool": weightnet_call}
 
@@ -442,14 +574,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="person_planes",
                     choices=tuple(CALLS))
-    ap.add_argument("--set", default="new", choices=("old", "new"))
+    ap.add_argument("--set", default="new",
+                    choices=("old", "new", "trace", "flips"))
     ap.add_argument("--source")
     ap.add_argument("--variants", help="comma-separated names (default: "
                     "all of the set)")
-    ap.add_argument("--cs", type=int, help="c2cnet's cluster size")
     ap.add_argument("--rows", type=int, help="weightnet_pool's band rows")
+    ap.add_argument("--trials", type=int, default=25, help="flips' inputs")
     args = ap.parse_args()
-    OPTIONS.update(cs=args.cs, rows=args.rows)
+    OPTIONS.update(rows=args.rows)
     if not torch.cuda.is_available():
         print("kernel_parts: no CUDA device", file=sys.stderr)
         return 2
@@ -467,13 +600,21 @@ def main() -> int:
     libs = build(source, variants)
     rows = []
     with torch.inference_mode():
-        make = CALLS[args.kernel](args.set)
-        for name, path in libs.items():
-            ms = time_ms(make(load(path)))
-            rows.append({"kernel": args.kernel, "set": args.set,
-                         "source": str(source), "variant": name, "ms": ms,
-                         "cs": args.cs, "rows": args.rows, "card": card})
-            print(json.dumps(rows[-1]), flush=True)
+        if args.set in ("trace", "flips"):
+            lib = load(next(iter(libs.values())))
+            rows = (c2cnet_trace(lib) if args.set == "trace"
+                    else c2cnet_flips(lib, args.trials))
+            for r in rows:
+                r.update(source=str(source), card=card)
+                print(json.dumps(r), flush=True)
+        else:
+            make = CALLS[args.kernel](args.set)
+            for name, path in libs.items():
+                ms = time_ms(make(load(path)))
+                rows.append({"kernel": args.kernel, "set": args.set,
+                             "source": str(source), "variant": name,
+                             "ms": ms, "rows": args.rows, "card": card})
+                print(json.dumps(rows[-1]), flush=True)
     _build._lib = None
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)

@@ -5,9 +5,10 @@ stem and deconv tiles, a 2048-channel deconv input; for the bf16 conv
 kernels every op and width of P2PNet and the bottleneck stage at ragged
 tiles, on both routes (conv_wgmma: Cin 16..256, N 16..256, 1x1 and 3x3,
 every residual and output type, a level with fewer tiles than SMs), C2CNet
-at Z = 8 and 12, column counts that are no multiple of 8, several clusters
-and every cluster size, WeightNet's pool in an odd number of bands and in
-chunks of joints, and the `fuse_p2p` path.
+at Z = 8, 12 and 96, column counts that are no multiple of 8, many CTAs
+and a weight ring of one slot, held also against its CPU emulation in the
+kernel's own order of sums, WeightNet's pool in an odd number of bands and
+in chunks of joints, and the `fuse_p2p` path.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -234,13 +235,22 @@ def test_weightnet_pool_kernel(dev, shape, rows):
     chunks of 50 joints; two calls give the same bits (the mean's fixed
     order)."""
     packed = pack_model(_model(shape[-1], dev))["weight_net"]
-    planes = torch.randn(shape, device=dev)
+    planes = torch.as_tensor(np.random.RandomState(0).randn(*shape)
+                             .astype(np.float32), device=dev)
+
+    def call():
+        if rows is None:
+            return kwn.weightnet_pool(planes, packed)
+        out = torch.empty((shape[0], shape[3], 32), device=dev)
+        kwn.launch(planes, packed, out, kwn.weightnet_plan(*shape, rows))
+        return out
+
     before = kwn.WEIGHTNET_POOL.launches
-    got = kwn.weightnet_pool(planes, packed, rows=rows)
+    got = call()
     assert kwn.WEIGHTNET_POOL.launches == before + 1
     ref = kwn.weightnet_pool_plain(planes, packed)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
-    assert torch.equal(kwn.weightnet_pool(planes, packed, rows=rows), got)
+    assert torch.equal(call(), got)
 
 
 def _assert_within_one_bf16_ulp(got, ref):
@@ -514,20 +524,61 @@ def test_p2pnet_kernel(dev, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-2 * scale)
 
 
-@pytest.mark.parametrize("cs", [None, 1, 2, 4])
-@pytest.mark.parametrize("N,Z,J", [(13, 8, 15), (7, 12, 17), (10, 20, 15),
-                                   (40, 20, 15)])
-def test_c2cnet_kernel(dev, N, Z, J, cs):
-    """Every cluster size; N = 40 (B = 4) runs several clusters."""
+C2C_SHAPES = [(13, 8, 15), (7, 12, 17), (10, 20, 15), (40, 20, 15),
+              (3, 96, 15)]
+
+
+def _c2cnet(packed, cols, depth):
+    """The kernel on the plan's ring depth (None) or the one given."""
+    if depth is None:
+        return kc2c.c2cnet(packed, cols)
+    out = torch.empty(cols.shape[:2], device=cols.device)
+    kc2c.launch(packed, cols, out, kc2c.c2cnet_plan(*cols.shape, depth))
+    return out
+
+
+def _columns(shape, seed, dev):
+    return torch.as_tensor(np.random.RandomState(seed).rand(*shape)
+                           .astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("depth", [None, 1])
+@pytest.mark.parametrize("N,Z,J", C2C_SHAPES)
+def test_c2cnet_kernel(dev, N, Z, J, depth):
+    """N = 40 (B = 4) runs 20 CTAs; Z = 96 and depth 1 a ring of one
+    slot."""
     packed = pack_model(_fuse_model(J, dev))["c2c_net"]
-    cols = torch.rand((N, Z, J), device=dev)
+    cols = _columns((N, Z, J), 0, dev)
     before = kc2c.C2C.launches
-    got = kc2c.c2cnet(packed, cols, cs=cs)
+    got = _c2cnet(packed, cols, depth)
     assert kc2c.C2C.launches == before + 1
     ref = kc2c.c2cnet_plain(packed, cols)
     scale = float(ref.abs().max())
     assert scale > 0 and got.shape == ref.shape == (N, Z)
     torch.testing.assert_close(got, ref, rtol=0, atol=5e-3 * scale)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("N,Z,J", C2C_SHAPES)
+def test_c2cnet_kernel_follows_its_emulation(dev, N, Z, J, seed):
+    """The kernel against its CPU emulation
+    (tests/test_torch_c2cnet_plan.py::emulate), which sums in the kernel's
+    order: each k16 step's products exactly, rounded toward zero to
+    float32, the steps added in K order. Bit for bit: so where the kernel
+    parts from the plain version (cuDNN's float32 sums in another order,
+    an activation rounded to the other bf16 neighbour and carried on
+    through the net), that is the order of the sums, not a fault of the
+    kernel."""
+    # pytest puts tests/ on the path (another installed package may be
+    # called `tests`)
+    from test_torch_c2cnet_plan import emulate
+
+    packed = pack_model(_fuse_model(J, dev))["c2c_net"]
+    cols = _columns((N, Z, J), seed, dev)
+    got = kc2c.c2cnet(packed, cols).cpu()
+    cpu = {k: v.cpu() for k, v in packed.items() if torch.is_tensor(v)}
+    ref = emulate(kc2c.c2cnet_plan(N, Z, J), cpu, cols.cpu())
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.parametrize("V,H,W,blocks,cmid,cin", [(2, 19, 37, 3, 16, 32),

@@ -9,11 +9,14 @@ weightnet_plan):
   channel group, rep), cover every (joint, channel, pooled cell) of a band
   once;
 - a PyTorch emulation of the kernel (the band's tile with its halo, each
-  thread's cells in its order, the reps and then the bands summed in a
-  fixed order) reproduces weightnet_pool_plain at the card test's
-  tolerance and the reference package's pallas_weightnet_pool in
+  thread's cells in its order, the affine after the 2x2 max on taps and
+  scale negated where the scale is negative, the reps and then the bands
+  summed in a fixed order) reproduces weightnet_pool_plain at the card
+  test's tolerance and the reference package's pallas_weightnet_pool in
   interpret mode at tests/test_torch_nets.py's, with an odd band count
-  among the shapes.
+  among the shapes;
+- the affine after the max is exact: bit for bit the max of the affine
+  outputs, negative scales included.
 """
 
 import numpy as np
@@ -32,12 +35,15 @@ SHAPES = [(30, 64, 64, 15, None), (4, 64, 64, 17, None),
           (1, 6, 258, 100, None)]
 
 
-def _packed(seed=0):
+def _packed(seed=0, negative=False):
+    """Seeded weights; `negative`: every third channel's scale below 0."""
     rng = np.random.RandomState(seed)
+    scale = 1 + 0.1 * rng.randn(32)
+    if negative:
+        scale[::3] *= -1
     return {"w": torch.from_numpy(rng.normal(0, 0.3, (9, 32))
                                   .astype(np.float32)),
-            "scale": torch.from_numpy((1 + 0.1 * rng.randn(32))
-                                      .astype(np.float32)),
+            "scale": torch.from_numpy(scale.astype(np.float32)),
             "shift": torch.from_numpy((0.1 * rng.randn(32))
                                       .astype(np.float32))}
 
@@ -49,10 +55,16 @@ def _thread(plan, t):
             (t // groups) % plan.reps)
 
 
-def emulate(plan, planes, packed):
-    """The kernel on the CPU: (N, A, B, J) -> (N, J, C)."""
+def emulate(plan, planes, packed, kernel_order=True):
+    """The kernel on the CPU: (N, A, B, J) -> (N, J, C). With
+    `kernel_order`, the kernel's pooled cell: taps and scale negated where
+    the scale is negative, the max of the four conv outputs, then
+    fl(fl(m s) + b); else the plain version's max of the four affine
+    outputs."""
     N, A, B, J = planes.shape
     w, sc, sh = packed["w"], packed["scale"], packed["shift"]
+    if kernel_order:
+        w, sc = w * torch.where(sc < 0, -1.0, 1.0), sc.abs()
     Bq = B // 2
     out = torch.zeros(N, J, kw.C)
     for n in range(N):
@@ -75,8 +87,10 @@ def emulate(plan, planes, packed):
                         p = tile[:, dy + ky:dy + ky + bh:2,
                                  dx + kx:dx + kx + B:2]
                         a = a + p[..., None] * w[t]
-                    v = a * sc + sh
+                    v = a if kernel_order else a * sc + sh
                     m = v if m is None else torch.maximum(m, v)
+            if kernel_order:
+                m = m * sc + sh
             val = torch.relu(m).reshape(J, -1, kw.C)   # cells in order
             cells = val.shape[1]
             # rep r sums cells r, r + reps, ... in order; then the reps
@@ -164,6 +178,7 @@ def test_launch_arguments_match_the_entry_point(monkeypatch):
     calls = []
     monkeypatch.setattr(Kernel, "__call__",
                         lambda self, *a: calls.append((self.fn, a)))
+    monkeypatch.setattr(kw, "_counters", lambda device, n: torch.zeros(n))
     plan = kw.weightnet_plan(2, 40, 24, 15, 16)
     kw.launch(torch.zeros(2, 40, 24, 15), _packed(), torch.empty(2, 15, 32),
               plan)
@@ -188,6 +203,31 @@ def test_emulation_matches_plain(shape):
     got = emulate(plan, planes, packed)
     assert got.shape == ref.shape and float(ref.abs().max()) > 0
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_affine_after_the_max_is_exact(shape):
+    """The kernel's order (negated taps and scale where the scale is
+    negative, the max, then the affine) gives the plain order's bits, on
+    the emulation's conv outputs and on conv outputs with many equal and
+    near-equal values."""
+    N, A, B, J, rows = shape
+    planes = torch.from_numpy(np.random.RandomState(A + 1).randn(N, A, B, J)
+                              .astype(np.float32))
+    packed = _packed(J, negative=True)
+    assert (packed["scale"] < 0).any() and (packed["scale"] > 0).any()
+    plan = kw.weightnet_plan(N, A, B, J, rows)
+    assert torch.equal(emulate(plan, planes, packed),
+                       emulate(plan, planes, packed, kernel_order=False))
+    rng = np.random.RandomState(J)
+    a = torch.from_numpy((rng.randn(4, 4096, 32) * 10.0 ** rng.randint(
+        -6, 4, (4, 4096, 32))).astype(np.float32))
+    a[1, ::7] = a[0, ::7]                      # ties
+    a[2, ::5] = torch.nextafter(a[0, ::5], torch.tensor(np.inf))
+    sc, sh = packed["scale"], packed["shift"]
+    plain = (a * sc + sh).amax(0)
+    neg = torch.where(sc < 0, -1.0, 1.0)
+    assert torch.equal((a * neg).amax(0) * sc.abs() + sh, plain)
 
 
 def test_emulation_matches_pallas(rng, nets):  # noqa: F811
