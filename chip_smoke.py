@@ -29,7 +29,8 @@ non-zero:
    the stem's plan and GB/s, and the wrappers' host enqueue times;
    C2CNet's plan (CTAs, columns a CTA, ring depth, barriers) and one
    launch per call; weightnet_pool's plan, its GB/s of input and two calls
-   bitwise equal;
+   bitwise equal; soft_argmax's plan (blocks a map, threads, rows), one
+   launch per call, its GB/s and two calls bitwise equal;
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -47,15 +48,23 @@ non-zero:
    `fuse_p2p=True`, for 12 frames with every launch count set to 0 just
    before, checks that p2pnet and c2cnet ran with K1..K5 (P2PNet's convs
    on the routes conv_plan gives them: 21 conv_wgmma, 2 wmma), prints its
-   latency and profile and holds frame 0 against the CPU; then drives the
-   bottleneck stage's entry point on the layer1 inputs of the 3 image
-   frames, counts at 0 just before (no model path runs it; all 10 of its
-   convs on conv_wgmma);
-7. prints one JSON line of the kernels, then the result line.
+   latency and profile and holds frame 0 against the CPU;
+7. drives the bf16 image serving path (`compute_dtype='bfloat16'`, the
+   reference's serving configuration in bench.py, `fuse_p2p` off): the
+   image Predictor in bf16 for 12 frames with every launch count set to 0
+   just before, checks that the stem (1 a frame), the bottleneck stage on
+   layer1 (10 conv_wgmma launches a frame), the deconv head (3 a frame)
+   and K1..K5 ran and nothing else did, prints its latency, profile and
+   parts (stem, layer1, layers 2-4, head, final_layer, HDN+JLN) beside the
+   float32 frame's parts of phase 5, holds view 0's heatmaps against the
+   CPU's bf16 backbone and frame 0's poses against the CPU's bf16 HDN+JLN
+   on the card's heatmaps, and prints its poses' distance from the float32
+   frame's as information;
+8. prints one JSON line of the kernels, then the result line.
 
-float32 outside the bf16 kernels: TF32 is switched off for cuDNN convs and
-matmuls, so that the card's plain path and the trunk compute in full
-float32.
+float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
+for cuDNN convs and matmuls, so that the card's plain path and the float32
+trunk compute in full float32.
 """
 
 from __future__ import annotations
@@ -94,6 +103,12 @@ MIN_SCORE_IMG = 0.3545
 # (0.2951 .. 0.3174, 0.3043 below and 0.3100 above this gate), and the same
 # three pass; the same two assertions hold on it.
 MIN_SCORE_FUSE = 0.306
+# The bf16 image path's gate, for the same weights and images: its bf16
+# trunk and cuDNN nets move the frame-0 confidences from the float32
+# path's (0.3396 .. 0.3634 on the CPU, nine of them within 2.1e-3 of the
+# next); this gate sits in the widest gap, 0.3396 below and 0.3483 above,
+# 4.3e-3 from each, and lets nine through; the same two assertions hold.
+MIN_SCORE_BF16 = 0.344
 # Whole bf16 nets against their plain versions: each launch is held at one
 # bf16 ulp alone (P2PNet, the bottleneck stage), but a flip early in a net
 # carries on through the layers after it, so the nets' outputs are held at
@@ -104,6 +119,15 @@ NET_RTOL = 1e-2
 # fuse_p2p path, card vs CPU, in mm: bf16 flips between the card's and the
 # CPU's sums move the soft-argmax (beta 100) coordinates.
 FUSE_POSE_TOL_MM = 1.0
+# bf16 image path, card vs CPU: cuDNN's bf16 convs round at other points
+# than the CPU's (C2CNet's scores up to ~2e-2 of their scale apart, as the
+# check prints), and the soft-argmax at beta 100 on the seeded nets' broad
+# maps (P2PNet's features of scale ~0.085) turns that into ~1 mm (0.91-1.00
+# mm a person on frame 0); a z pick may flip where C2CNet's scores at two
+# heights lie within bf16's reach of each other (one of ten on frame 0,
+# 1.2e-2 of their scale apart).
+BF16_POSE_TOL_MM = 3.0
+BF16_TIE_RTOL = 2e-2
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -372,6 +396,10 @@ def main() -> int:
     # the fuse_p2p predictor: the same weights, C2CNet and P2PNet as kernels
     cfg_fuse = FVPConfig(backbone="", fuse_p2p=True, min_score=MIN_SCORE_FUSE)
     pred_fuse = Predictor.from_state_dict(cfg_fuse, state, rig, device=dev)
+    # the bf16 image predictor (bench.py's configuration): the same weights
+    cfg_bf16 = FVPConfig(min_score=MIN_SCORE_BF16, compute_dtype="bfloat16")
+    pred_bf16 = Predictor.from_state_dict(cfg_bf16, state, rig, device=dev,
+                                          backbone_state_dict=bb_state)
     hm = torch.as_tensor(frames[0], device=dev)
     rc, packed, model = pred.rc, pred.packed, pred.model
     V, J = cfg.num_views, cfg.num_joints
@@ -432,6 +460,7 @@ def main() -> int:
                None,
                bound(nbytes(fl, rc.center_grid, c_k, p_k),
                      fl.numel() * 8.0))
+        softargmax_plan_line(fl, rc.center_grid, cfg.beta, c_k, p_k, rows)
 
         # K5 weightnet_pool on the same features
         feats = feats.contiguous()
@@ -484,7 +513,7 @@ def main() -> int:
     img_steady = lat[WARMUP_FRAMES:]
     log_latency("image frame latency", lat)
     profile_frames(pred_img, img_frames)
-    image_breakdown(pred_img, img_frames[0])
+    img_parts = image_breakdown(pred_img, img_frames[0])
 
     # (a) the backbone's heatmaps, view 0, against the plain backbone
     hm_img = pred_img.heatmaps(img_frames[0])             # (1, V, J, h, w)
@@ -494,20 +523,11 @@ def main() -> int:
     with torch.inference_mode():
         ref = bb_cpu(torch.from_numpy(images[0][:1]),
                      pack_backbone(bb_cpu))[0].permute(2, 0, 1)
-    got = hm_img[0, 0].cpu()
-    scale = float(ref.abs().max())
-    spread = float(ref.std(dim=(1, 2)).min())
-    err = float((got - ref).abs().max())
-    log(f"heatmaps {tuple(hm_img.shape)}: view 0 card vs CPU max_abs_err "
-        f"{err:.3e}, scale {scale:.3e} (tol {HM_RTOL} x scale); smallest "
-        f"per-joint std {spread:.3e}")
-    if not (torch.isfinite(got).all() and spread > 1e-2 * scale > 0):
-        raise AssertionError("heatmaps non-finite or without spread")
-    if not err <= HM_RTOL * scale:
-        raise AssertionError("heatmaps differ between card and CPU")
+    check_heatmaps(hm_img[0, 0].cpu(), ref, "")
     # (b) the HDN+JLN on those heatmaps: the card's frame 0 against the CPU
     cpu_img = Predictor.from_state_dict(cfg_img, state, rig, device="cpu")
     check_poses(outs[0], cpu_img, hm_img, "image path ")
+    img_outs = outs
 
     # 6. the fuse_p2p serving path: counts to 0, frames, counts read back
     outs, lat, fuse_launches = drive(pred_fuse, frames, K)
@@ -521,23 +541,48 @@ def main() -> int:
     cpu_fuse = Predictor.from_state_dict(cfg_fuse, state, rig, device="cpu")
     check_poses(outs[0], cpu_fuse, hm, "fuse_p2p path ", FUSE_POSE_TOL_MM)
 
-    # the bottleneck stage's entry point on the image frames' layer1 inputs
-    stage_launches = drive_stage(pred_img, img_frames, K)
-    log(f"bottleneck_stage entry point: {len(img_frames)} frames, launches "
-        f"{stage_launches}")
-    expect_launches(stage_launches, ("bottleneck_stage",), "stage entry point")
-    expect_conv_routes(K, "bottleneck_stage", len(img_frames), STAGE_ROUTES)
+    # 7. the bf16 image serving path (the reference's serving
+    # configuration): counts to 0, frames, counts read back
+    outs, lat, bf16_launches = drive(pred_bf16, img_frames, K)
+    log(f"bf16 image path: {FRAMES} frames, launches {bf16_launches}")
+    expect_launches(bf16_launches, BF16_IMAGE_PATH, "bf16 image path")
+    expect_per_frame(bf16_launches, {"stem": 1, "deconv_stage": 3},
+                     "bf16 image path")
+    expect_conv_routes(K, "bottleneck_stage", FRAMES, STAGE_ROUTES)
+    bf16_steady = lat[WARMUP_FRAMES:]
+    log_latency("bf16 image frame latency", lat)
+    profile_frames(pred_bf16, img_frames)
+    bf16_parts = image_breakdown(pred_bf16, img_frames[0])
+    log("image frame by part, bfloat16 beside float32 (this run):")
+    for name in bf16_parts:
+        log(f"  {bf16_parts[name]:8.3f} ms  {img_parts[name]:8.3f} ms  "
+            f"{name}")
+    log(f"  {sum(bf16_parts.values()):8.3f} ms  "
+        f"{sum(img_parts.values()):8.3f} ms  sum")
+    # (a) the bf16 backbone's heatmaps, view 0, against the CPU's bf16
+    hm_bf16 = pred_bf16.heatmaps(img_frames[0])
+    bb_cpu16 = PoseResNet(cfg_img.num_joints, cfg_img.resnet_layers)
+    bb_cpu16.load_state_dict(bb_state)
+    bb_cpu16.eval()
+    with torch.inference_mode():
+        ref = bb_cpu16(torch.from_numpy(images[0][:1]),
+                       pack_backbone(bb_cpu16, "bfloat16"))[0]
+    check_heatmaps(hm_bf16[0, 0].cpu(), ref.permute(2, 0, 1), "bf16 ")
+    # (b) the bf16 HDN+JLN on the card's heatmaps against the CPU's
+    cpu_bf16 = Predictor.from_state_dict(cfg_bf16, state, rig, device="cpu")
+    check_poses_bf16(outs[0], pred_bf16, cpu_bf16, hm_bf16)
+    pose_distance(outs[0], img_outs[0])
 
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
-             "bottleneck_stage_entry_point": stage_launches}
+             "bf16_image_path": bf16_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage"):
         row = dict(rows[name])
         main = ("image_path" if name in IMAGE_PATH else "fuse_p2p_path"
-                if name in FUSE_PATH else "bottleneck_stage_entry_point")
+                if name in FUSE_PATH else "bf16_image_path")
         row["launches"] = paths[main][name]
         row["launches_from"] = main
         for path, counts in paths.items():
@@ -548,11 +593,42 @@ def main() -> int:
                     "image_frame_ms_median": statistics.median(img_steady),
                     "fuse_p2p_frame_ms_median": statistics.median(
                         fuse_steady),
+                    "bf16_image_frame_ms_median": statistics.median(
+                        bf16_steady),
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def softargmax_plan_line(fl, grid, beta, coords, confs, rows) -> None:
+    """soft_argmax's plan, its launches per call (1), its rate of input
+    read and a second call bit for bit equal to the first (the
+    fixed-order combine)."""
+    import torch
+    from fvp_torch.ops.kernels import softargmax as ksa
+
+    plan = ksa.softargmax_plan(*fl.shape)
+    before = ksa.SOFT_ARGMAX.launches
+    again = ksa.soft_argmax(fl, grid, beta)
+    torch.cuda.synchronize()
+    calls = ksa.SOFT_ARGMAX.launches - before
+    if calls != 1:
+        raise AssertionError(f"soft_argmax: {calls} launches in one call")
+    if not (torch.equal(again[0], coords) and torch.equal(again[1], confs)):
+        raise AssertionError("soft_argmax: two calls differ")
+    row = rows["soft_argmax"]
+    row["launches_per_call"] = calls
+    row["gb_per_s"] = nbytes(fl) / row["ms"] / 1e6
+    row["plan"] = {k: v for k, v in plan._asdict().items()
+                   if k in ("threads", "rows", "chunk", "ctas_per_map",
+                            "ctas")}
+    log(f"soft_argmax plan: {plan.ctas_per_map} blocks a map of "
+        f"{plan.threads} threads ({plan.rows} rows a thread, {plan.chunk} "
+        f"rows a block), {plan.ctas} blocks, {calls} launch per call; "
+        f"{row['gb_per_s']:.1f} GB/s of its {nbytes(fl) / 1e6:.1f} MB "
+        "input; two calls bitwise equal")
 
 
 def weightnet_plan_line(feats, pw, first, rows) -> None:
@@ -939,13 +1015,11 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
     its scale. C2CNet, one launch, on frame 0's z-columns (10, 20, 15):
     within NET_RTOL of its scale. Library yardstick: the port's cuDNN
     module of the same net in bf16 (P2PNet channels-last)."""
-    import copy
-
     import torch
+    from fvp_torch.engine.packing import bf16_copy
     from fvp_torch.ops.kernels import c2cnet as kc2c
     from fvp_torch.ops.kernels import hourglass as khg
 
-    cl = torch.channels_last
     pk = pred.packed["p2p_net"]
     log(f"p2pnet {tuple(planes.shape)}, launch by launch (device time of "
         "each alone):")
@@ -962,8 +1036,7 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
         f"{scale:.3e} (tol {NET_RTOL} x scale)")
     if not (paired.ulps <= 1.0 and err <= NET_RTOL * scale and scale > 0):
         raise AssertionError("p2pnet disagrees with its plain version")
-    net16 = copy.deepcopy(pred.model.joint_net.conv_net).to(
-        torch.bfloat16).to(memory_format=cl)
+    net16 = bf16_copy(pred.model.joint_net.conv_net, ("output_layer",))
     p16 = planes.to(torch.bfloat16)
     rows["p2pnet"] = {
         "name": "p2pnet", "route": "cuda",
@@ -989,7 +1062,7 @@ def fuse_kernels(pred, hm, planes, rows) -> None:
         f"{scale:.3e} (tol {NET_RTOL} x scale), {ulps:.3f} bf16 ulps")
     if not (err <= NET_RTOL * scale and scale > 0):
         raise AssertionError("c2cnet disagrees with its plain version")
-    c2c16 = copy.deepcopy(pred.model.pose_net.c2c_net).to(torch.bfloat16)
+    c2c16 = bf16_copy(pred.model.pose_net.c2c_net, ("output_hm",))
     c16 = cols.to(torch.bfloat16)
     rows["c2cnet"] = {
         "name": "c2cnet", "route": "cuda",
@@ -1115,53 +1188,65 @@ def bf16_row(name, err, ulps, ms, plain_ms, lib_ms, bnd) -> dict:
             "library_ms": lib_ms}
 
 
-def image_breakdown(pred, frame) -> None:
+def image_breakdown(pred, frame) -> dict:
     """The image frame's parts, each timed alone (CUDA events around the
     call, median of 20): the pageable host-to-device copy of the images,
-    the stem, the float32 cuDNN trunk, the three deconv launches,
-    final_layer and the HDN+JLN (whose host gaps between launches count).
-    Beside them, the trunk on contiguous NCHW tensors instead of the
-    port's channels-last ones, as a yardstick for its layout."""
+    the stem, layer1 (the stage kernel under bf16, else cuDNN), layers 2-4
+    (cuDNN, channels-last, in the predictor's compute_dtype), the three
+    deconv launches, final_layer and the HDN+JLN (whose host gaps between
+    launches count). Returns them by name."""
     import torch
     from fvp_torch.ops.kernels.deconv_head import deconv_head
     from fvp_torch.ops.kernels.stem import stem
+    from fvp_torch.ops.kernels.trunk import bottleneck_stage
 
     bb, pk = pred.backbone, pred.backbone_packed
 
     def timed(fn):                   # the card idle at the first event
         return time_ms(fn, with_enqueue=True)
 
-    def trunk_nchw(x):
-        for li in range(1, 5):
-            x = getattr(bb, f"layer{li}")(x)
-        return x
+    trunk = pk.get("trunk")          # the bf16 copies of the layers
+    layers = [bb.layer1, bb.layer2, bb.layer3, bb.layer4] if trunk is None \
+        else trunk
+
+    def layer1(s):
+        if "layer1" in pk:
+            return bottleneck_stage(s, *pk["layer1"]).permute(0, 3, 1, 2)
+        x = s.permute(0, 3, 1, 2)
+        return layers[0](x.float() if trunk is None else x)
+
+    def layers2to4(x):
+        for layer in layers[-3:]:
+            x = layer(x)
+        return x.permute(0, 2, 3, 1).contiguous()
 
     with torch.inference_mode():
         x = torch.as_tensor(frame, device=pred.device)
         flat = x.reshape(-1, *x.shape[2:])
         s = stem(flat, pk["stem"])
-        t = bb.trunk(s)
+        l1 = layer1(s)
+        t = layers2to4(l1)
         h = deconv_head(t, pk["head"]).float().permute(0, 3, 1, 2)
         hm = pred.heatmaps(frame)
-        s_nchw = s.float().permute(0, 3, 1, 2).contiguous()
         parts = {
             "host-to-device copy of the images (pageable)": timed(
                 lambda: torch.as_tensor(frame, device=pred.device)),
             "stem kernel": timed(lambda: stem(flat, pk["stem"])),
-            "trunk (float32 cuDNN, TF32 off, channels-last)": timed(
-                lambda: bb.trunk(s)),
+            "layer1": timed(lambda: layer1(s)),
+            "layers 2-4 (cuDNN, channels-last)": timed(
+                lambda: layers2to4(l1)),
             "head (3 deconv launches)": timed(
                 lambda: deconv_head(t, pk["head"])),
             "final_layer": timed(lambda: bb.final_layer(h)),
             "HDN+JLN on the heatmaps": timed(
                 lambda: pred.model(hm, pred.rc, pred.packed)),
         }
-        nchw = timed(lambda: trunk_nchw(s_nchw))
-    log("image frame by part (each timed alone):")
+    log(f"image frame by part, {pk['compute_dtype']} (each timed alone; "
+        f"layer1 on {'the stage kernel' if 'layer1' in pk else 'cuDNN'}):")
     for name, ms in parts.items():
         log(f"  {ms:8.3f} ms  {name}")
-    log(f"  {sum(parts.values()):8.3f} ms  sum; the trunk on contiguous "
-        f"NCHW (a yardstick, not the port's path): {nchw:.3f} ms")
+    log(f"  {sum(parts.values()):8.3f} ms  sum")
+    return parts
 
 
 # the kernels each path must launch (and no others)
@@ -1169,6 +1254,7 @@ HEATMAP_PATH = ("whole_sample", "person_planes", "centernet", "soft_argmax",
                 "weightnet_pool")
 IMAGE_PATH = ("stem", "deconv_stage") + HEATMAP_PATH
 FUSE_PATH = HEATMAP_PATH + ("p2pnet", "c2cnet")
+BF16_IMAGE_PATH = IMAGE_PATH + ("bottleneck_stage",)
 
 
 def launch_counts(K) -> dict:
@@ -1234,29 +1320,104 @@ def drive(pred, frames, K):
     return outs, lat, launch_counts(K)
 
 
-def drive_stage(pred, frames, K) -> dict:
-    """The bottleneck stage's entry point on the layer1 input (the stem's
-    output) of each image frame, counts at 0 just before; checks each
-    output against the stage's plain version within NET_RTOL."""
+def check_poses_bf16(out, pred, cpu, hm) -> None:
+    """The bf16 path's frame against the CPU's bf16 HDN+JLN on the same
+    heatmaps. cuDNN's bf16 convs and the CPU's round at other points (the
+    C2CNet scores' difference is printed): masks must be identical (the
+    gate clear of both sides' confidences), each person whose voxel pick
+    agrees within BF16_POSE_TOL_MM, and a person whose z pick differs only
+    where C2CNet's scores at the two picks are a near-tie on the CPU
+    (within BF16_TIE_RTOL of the person's score scale)."""
     import torch
-    from fvp_torch.ops.kernels import stem as kst
-    from fvp_torch.ops.kernels import trunk as ktr
 
-    packed, cfg = stage_weights(pred)
+    ref = cpu(hm.cpu())
+    got = {k: v.cpu() for k, v in out.items()}
     with torch.inference_mode():
-        inputs = [kst.stem(torch.as_tensor(f[0], device=pred.device),
-                           pred.backbone_packed["stem"]) for f in frames]
-        K.reset_launches()
-        outs = [ktr.bottleneck_stage(x, packed, cfg) for x in inputs]
-        torch.cuda.synchronize()
-        counts = launch_counts(K)
-        for x, got in zip(inputs, outs):
-            ref = ktr.bottleneck_stage_plain(x, packed, cfg).float()
-            err = float((got.float() - ref).abs().max())
-            if not err <= NET_RTOL * float(ref.abs().max()):
-                raise AssertionError(f"bottleneck_stage: {err} off its plain "
-                                     "version")
-    return counts
+        d_cpu = cpu.model.detect(hm.cpu(), cpu.rc, cpu.packed)
+        d_card = pred.model.detect(hm, pred.rc, pred.packed)
+    c_cpu = d_cpu["proposals"][0, :, 4]
+    c_card = d_card["proposals"][0, :, 4].cpu()
+    min_score = cpu.cfg.min_score
+    passed = int(ref["mask"].sum())
+    log(f"bf16 image path proposals passing min_score={min_score}: {passed}; "
+        f"detection confidences, CPU {[round(float(c), 4) for c in c_cpu]}, "
+        f"card {[round(float(c), 4) for c in c_card]}")
+    gap = float(torch.minimum((c_cpu - min_score).abs(),
+                              (c_card - min_score).abs()).min())
+    if passed < 2 or gap <= 1e-4:
+        raise AssertionError(f"vacuous or fragile gate: {passed} pass, "
+                             f"closest confidence {gap} from min_score")
+    if not torch.equal(got["mask"], ref["mask"]):
+        raise AssertionError("masks differ between the card and the CPU")
+    for k in ("fused_poses", "proposals"):
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"{k}: non-finite")
+    same = (got["proposals"][0, :, :3] == ref["proposals"][0, :, :3]) \
+        .all(dim=-1)
+    hm1d = d_cpu["hm1d"][0]                                  # (K, Z)
+    z_card = d_card["hm1d"][0].argmax(dim=-1).cpu()
+    log(f"bf16 image path C2CNet scores, card vs CPU: max_abs_err "
+        f"{float((d_card['hm1d'][0].cpu() - hm1d).abs().max()):.3e}, scale "
+        f"{float(hm1d.abs().max()):.3e}")
+    flips = []
+    for k in torch.nonzero(~same).flatten().tolist():
+        xy_same = bool((got["proposals"][0, k, :2]
+                        == ref["proposals"][0, k, :2]).all())
+        tie = float(hm1d[k].max() - hm1d[k, z_card[k]])
+        scale = float(hm1d[k].abs().max())
+        flips.append((k, int(hm1d[k].argmax()), int(z_card[k]), tie / scale))
+        if not (xy_same and tie <= BF16_TIE_RTOL * scale):
+            raise AssertionError(f"person {k}: voxel picks differ beyond a "
+                                 f"z near-tie ({tie / scale:.3e} of scale)")
+    err = (got["fused_poses"][0, :, :, :3] - ref["fused_poses"][0, :, :, :3]
+           ).norm(dim=-1).amax(dim=-1)                       # (K,)
+    kept = err[same]
+    log(f"bf16 image path fused_poses: {int(same.sum())} of {same.numel()} "
+        f"people with the same voxel pick on card and CPU, joint distance "
+        f"max {float(kept.max()):.3e} mm (tol {BF16_POSE_TOL_MM} mm), per "
+        f"person {[round(float(e), 3) for e in kept]}; z picks that differ "
+        f"on a near-tie (person, CPU z, card z, gap / scale): {flips}")
+    if not float(kept.max()) <= BF16_POSE_TOL_MM:
+        raise AssertionError("bf16 fused_poses differ between card and CPU")
+
+
+def check_heatmaps(got, ref, label) -> None:
+    """View 0's heatmaps (J, h, w), card against CPU: finite, with spread,
+    within HM_RTOL of their scale."""
+    import torch
+
+    scale = float(ref.abs().max())
+    spread = float(ref.std(dim=(1, 2)).min())
+    err = float((got - ref).abs().max())
+    log(f"{label}heatmaps {tuple(got.shape)}: view 0 card vs CPU "
+        f"max_abs_err {err:.3e}, scale {scale:.3e} (tol {HM_RTOL} x "
+        f"scale); smallest per-joint std {spread:.3e}")
+    if not (torch.isfinite(got).all() and spread > 1e-2 * scale > 0):
+        raise AssertionError("heatmaps non-finite or without spread")
+    if not err <= HM_RTOL * scale:
+        raise AssertionError("heatmaps differ between card and CPU")
+
+
+def pose_distance(bf16, f32) -> None:
+    """Information, not a gate: the bf16 frame's fused poses against the
+    float32 frame's on the card, over the people both keep."""
+    both = (bf16["mask"] & f32["mask"])[0]
+    d = (bf16["fused_poses"][0, :, :, :3] - f32["fused_poses"][0, :, :, :3])
+    d = d.norm(dim=-1)[both]
+    log(f"bf16 vs float32 image path on the card: masks "
+        f"{bf16['mask'][0].tolist()} vs {f32['mask'][0].tolist()}; over the "
+        f"{int(both.sum())} people both keep, joint distance max "
+        f"{float(d.max()) if d.numel() else float('nan'):.3f} mm, mean "
+        f"{float(d.mean()) if d.numel() else float('nan'):.3f} mm")
+
+
+def expect_per_frame(counts, per_frame, what) -> None:
+    """Each named kernel launched exactly that many times a frame."""
+    for name, n in per_frame.items():
+        if counts[name] != n * FRAMES:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times in {FRAMES} frames, expected "
+                                 f"{n} a frame")
 
 
 def log_latency(what, lat) -> None:

@@ -140,8 +140,8 @@ class FVPConfig:
     # the reference package's sampler choice: 'auto', 'pallas' or 'exact'
     # (the port always samples exactly, in its kernels on the card)
     sampling_backend: str = "auto"
-    # network compute dtype: 'float32' or 'bfloat16' (the port runs
-    # float32 only so far)
+    # network compute dtype: 'float32' or 'bfloat16' (the reference's
+    # serving configuration; engine/serve.py)
     compute_dtype: str = "float32"
 
     # ------------------------------------------------------------------

@@ -25,9 +25,16 @@ and `pack_bottleneck_stage` (a ResNet layer of stride-1 Bottlenecks). They
 equal the reference package's `pack_p2pnet`, `pack_c2cnet` and
 `pack_bottleneck_stage` (fvp_tpu/ops/pallas/hourglass.py, trunk.py) up to
 these layouts.
+
+For `compute_dtype='bfloat16'` the packed weights also hold copies of the
+modules that run on cuDNN in bf16, their convs' weights in bf16
+(`bf16_copy`). Like every packed weight they are a snapshot of the
+parameters: a model whose parameters change is packed again.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from torch import nn
 
 from fvp_torch.models.blocks import ResBlock, UpsampleBlock
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
+from fvp_torch.models.resnet import Bottleneck
 from fvp_torch.ops.kernels.c2cnet import pack_fragments
 from fvp_torch.ops.kernels.centernet import flatten_weights
 from fvp_torch.ops.kernels.deconv_head import pack_deconv_weight
@@ -111,16 +119,67 @@ def bn_affine(bn: nn.BatchNorm2d) -> torch.Tensor:
 
 
 @torch.no_grad()
-def pack_backbone(model) -> dict:
+def pack_backbone(model, compute_dtype: str = "float32") -> dict:
     """Packed weights of a PoseResNet's stem and deconv-head kernels, on the
     model's device, in bf16: {"stem": {"w": (7, 7, 3, 64), "aff"},
-    "head": [{"w": (4, 4, Cin, F) per parity and tap, "aff"}, ...]}."""
+    "head": [{"w": (4, 4, Cin, F) per parity and tap, "aff"}, ...],
+    "compute_dtype"}. For 'bfloat16' also the trunk's layers in bf16
+    ("trunk": their `bf16_copy`), but a Bottleneck ResNet's layer1, which
+    is packed for the stage kernel ("layer1": (its blocks, (cmid,
+    downsample) per block))."""
+    check_compute_dtype(compute_dtype)
     stem = {"w": model.conv1.weight.detach().permute(2, 3, 1, 0)
             .to(torch.bfloat16).contiguous(), "aff": bn_affine(model.bn1)}
     layers = list(model.deconv_layers)
     head = [{"w": pack_deconv_weight(conv.weight), "aff": bn_affine(bn)}
             for conv, bn in zip(layers[0::3], layers[1::3])]
-    return {"stem": stem, "head": head}
+    packed = {"stem": stem, "head": head, "compute_dtype": compute_dtype}
+    if compute_dtype == "bfloat16":
+        trunk = [model.layer1, model.layer2, model.layer3, model.layer4]
+        if isinstance(model.layer1[0], Bottleneck):
+            packed["layer1"] = (pack_bottleneck_stage(model.layer1), tuple(
+                (blk.conv1.out_channels, blk.downsample is not None)
+                for blk in model.layer1))
+            trunk = trunk[1:]
+        packed["trunk"] = [bf16_copy(layer) for layer in trunk]
+    return packed
+
+
+# the reference package's float32 and its serving configuration's bf16
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_compute_dtype(compute_dtype: str) -> None:
+    """Raise for a compute_dtype the port does not serve."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: fvp_torch "
+                         f"serves {' and '.join(COMPUTE_DTYPES)}")
+
+
+@torch.no_grad()
+def bf16_copy(module: nn.Module, keep_float: tuple[str, ...] = ()
+              ) -> nn.Module:
+    """A copy of `module` for a bf16 input, as the reference's modules
+    with `dtype=bfloat16` compute (their parameters stay float32 and are
+    cast at use; here once, at load time): its convs hold bf16 weights
+    and biases (a 2D conv's weight channels-last, the layout of the port's
+    activations), sum in float32 and round their output to bf16; its
+    BatchNorms keep float32 statistics and affine and round their output
+    to bf16. The submodules named in `keep_float` (the task nets' 1x1
+    heads, which take a float32 input) stay float32. The module itself is
+    left as it is."""
+    net = copy.deepcopy(module)
+    kept = {id(m) for name in keep_float
+            for m in net.get_submodule(name).modules()}
+    for m in net.modules():
+        if isinstance(m, _CONVS) and id(m) not in kept:
+            m.to(torch.bfloat16)
+            if isinstance(m, nn.Conv2d):
+                m.to(memory_format=torch.channels_last)
+    return net
+
+
+_CONVS = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.ConvTranspose2d)
 
 
 def _fold(bias: torch.Tensor | None, bn: nn.Module | None) -> torch.Tensor:
@@ -246,13 +305,23 @@ def pack_bottleneck_stage(layer: nn.Sequential) -> list:
     return out
 
 
-def pack_model(model) -> dict:
+def pack_model(model, compute_dtype: str = "float32") -> dict:
     """Packed kernel weights of a FasterVoxelPose, on the model's device.
     They are detached from the parameters (no autograd). P2PNet and C2CNet
-    are packed only for the `fuse_p2p` path, which runs them as kernels."""
+    are packed only for the `fuse_p2p` path, which runs them as kernels.
+    For `compute_dtype='bfloat16'` their cuDNN modules (the path without
+    `fuse_p2p`, and shapes its kernels do not take) are packed as well, as
+    `bf16_copy`s with their 1x1 heads in float32: "bf16_nets" {"c2c_net",
+    "conv_net"}."""
+    check_compute_dtype(compute_dtype)
     packed = {"center_net": pack_centernet(model.pose_net.center_net),
               "weight_net": pack_weightnet(model.joint_net.weight_net)}
     if model.cfg.fuse_p2p:
         packed["p2p_net"] = pack_p2pnet(model.joint_net.conv_net)
         packed["c2c_net"] = pack_c2cnet(model.pose_net.c2c_net)
+    if compute_dtype == "bfloat16":
+        packed["bf16_nets"] = {
+            "c2c_net": bf16_copy(model.pose_net.c2c_net, ("output_hm",)),
+            "conv_net": bf16_copy(model.joint_net.conv_net,
+                                  ("output_layer",))}
     return packed

@@ -4,7 +4,10 @@ It holds the model, the rig constants and the packed kernel weights on one
 device, and runs the eval forward per frame. A frame is heatmaps, or, when
 the predictor holds a backbone, normalized images. It runs on `cuda` unless
 the caller passes a device; without a card and without an explicit device
-it raises rather than fall back to the host.
+it raises rather than fall back to the host. `cfg.compute_dtype` is
+'float32' or 'bfloat16' (the reference's serving configuration: the
+backbone's trunk and the cuDNN task nets in bf16, on the copies that
+engine/packing.py::bf16_copy makes at load time); any other raises.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import Any, Mapping
 import torch
 
 from fvp_torch.config import FVPConfig
-from fvp_torch.engine.packing import pack_backbone, pack_model
+from fvp_torch.engine.packing import (check_compute_dtype, pack_backbone,
+                                      pack_model)
 from fvp_torch.geometry.cameras import CameraRig
 from fvp_torch.geometry.grids import build_rig_constants
 from fvp_torch.models.convert import (from_jax_backbone_variables,
@@ -65,24 +69,21 @@ class Predictor:
 
     def _setup(self, cfg, state_dict, rig, device, backbone_state_dict
                ) -> None:
-        if cfg.compute_dtype != "float32":
-            raise ValueError(
-                f"compute_dtype {cfg.compute_dtype!r}: fvp_torch serves "
-                "float32 only; bf16 serving comes with ROADMAP Queue 1 "
-                "item 2")
+        check_compute_dtype(cfg.compute_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
         model = FasterVoxelPose(cfg)
         model.load_state_dict(state_dict)
         self.model = model.eval().to(self.device)
         self.rc = build_rig_constants(cfg, rig).to(self.device)
-        self.packed = pack_model(self.model)
+        self.packed = pack_model(self.model, cfg.compute_dtype)
         self.backbone = None
         if backbone_state_dict is not None:
             bb = PoseResNet(cfg.num_joints, cfg.resnet_layers)
             bb.load_state_dict(backbone_state_dict)
             self.backbone = bb.eval().to(self.device)
-            self.backbone_packed = pack_backbone(self.backbone)
+            self.backbone_packed = pack_backbone(self.backbone,
+                                                 cfg.compute_dtype)
 
     @torch.inference_mode()
     def heatmaps(self, images) -> torch.Tensor:

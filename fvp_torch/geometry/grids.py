@@ -109,6 +109,8 @@ class RigConstants:
     rig:             CameraRig (float32) for the per-person path.
     hm_transform:    (2, 3) original-pixel -> heatmap-pixel affine.
     cam_params:      (V, 27) packed rig + affine (see `pack_cam_params`).
+    voxel_to_mm:     (2, 3) coarse voxel index -> world mm affine (scale,
+                     bias), made once so that a frame copies no constant.
 
     Built as numpy arrays; `to(device)` returns the same constants as
     float32 tensors on `device`.
@@ -119,6 +121,7 @@ class RigConstants:
     rig: CameraRig
     hm_transform: Any
     cam_params: Any
+    voxel_to_mm: Any
 
     def to(self, device) -> "RigConstants":
         def t(x):
@@ -130,6 +133,7 @@ class RigConstants:
             rig=self.rig.to(device),
             hm_transform=t(self.hm_transform),
             cam_params=t(self.cam_params),
+            voxel_to_mm=t(self.voxel_to_mm),
         )
 
 
@@ -149,4 +153,13 @@ def build_rig_constants(cfg: FVPConfig, rig: CameraRig) -> RigConstants:
         rig=rig.astype(np.float32),
         hm_transform=hm_t.astype(np.float32),
         cam_params=pack_cam_params(rig, hm_t),
+        voxel_to_mm=np.stack(voxel_to_mm(cfg)),
     )
+
+
+def voxel_to_mm(cfg: FVPConfig):
+    """Coarse voxel index -> world mm affine (float32 numpy)."""
+    space = np.asarray(cfg.space_size, np.float32)
+    vox = np.asarray(cfg.voxels_per_axis, np.float32)
+    center = np.asarray(cfg.space_center, np.float32)
+    return space / (vox - 1.0), center - space / 2.0

@@ -19,6 +19,11 @@ XLA; with `cfg.fuse_p2p` the serving path runs them as bf16 kernels
 instead (`ops/kernels/c2cnet.py`, one launch, and
 `ops/kernels/hourglass.py`, layer by layer), on weights packed from these
 modules.
+
+Under `compute_dtype='bfloat16'` C2CNet and P2PNet run as bf16 copies
+(engine/packing.py::bf16_copy) up to their 1x1 output convs, which take a
+float32 input and float32 weights, as the reference's heads do
+(fvp_tpu/models/cnns.py: `x.astype(jnp.float32)`).
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ class C2CNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.encoder_decoder(self.front_layers(x.permute(0, 2, 1)))
-        return self.output_hm(x)[:, 0]
+        return self.output_hm(x.float())[:, 0]
 
 
 class P2PNet(nn.Module):
@@ -73,7 +78,7 @@ class P2PNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.encoder_decoder(self.front_layers(x.permute(0, 3, 1, 2)))
-        return self.output_layer(x).permute(0, 2, 3, 1)
+        return self.output_layer(x.float()).permute(0, 2, 3, 1)
 
 
 class WeightNet(nn.Module):

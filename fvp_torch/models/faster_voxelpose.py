@@ -10,13 +10,19 @@ Data flow (the reference package's FasterVoxelPose, non-train branch):
     -> P2PNet -> soft-argmax [K4] -> WeightNet [K5 + MLP] fusion
     -> fused poses (B, K, J, 5) [xyz mm, match, score]
 
-C2CNet and P2PNet are cuDNN modules by default. With `cfg.fuse_p2p` they
-run as the bf16 kernels of the reference's fused nets, as the reference
+C2CNet and P2PNet are cuDNN modules by default, in float32, or in bf16
+up to their float32 1x1 heads where the packed weights hold their bf16
+copies (`compute_dtype='bfloat16'`, the reference's serving
+configuration; engine/packing.py::pack_model). With `cfg.fuse_p2p` they run
+as the bf16 kernels of the reference's fused nets, as the reference
 routes them (fvp_tpu/models/faster_voxelpose.py:204, :332): C2CNet when
 the z axis is a multiple of 4 (`ops/kernels/c2cnet.py`), P2PNet when
 `hourglass_supported` accepts the plane shape (`ops/kernels/hourglass.py`).
 The reference also asks for its Pallas samplers there; the port always
-samples in its kernels, so that condition has no counterpart.
+samples in its kernels, so that condition has no counterpart. CenterNet
+and WeightNet's conv front end run on their float32 kernels under either
+dtype (the reference computes them in bf16 under 'bfloat16'); the
+soft-argmax reads P2PNet's float32 output.
 
 Submodules carry the reference model's key names (`pose_net.center_net`,
 `pose_net.c2c_net`, `joint_net.conv_net`, `joint_net.weight_net`). The
@@ -26,7 +32,6 @@ CPU tensors, so the same forward serves both devices.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -42,12 +47,13 @@ from fvp_torch.ops.kernels.weightnet import weightnet_pool
 from fvp_torch.ops.nms import nms_topk_2d
 
 
-def voxel_to_mm(cfg: FVPConfig):
-    """Coarse voxel index -> world mm affine (float32 numpy)."""
-    space = np.asarray(cfg.space_size, np.float32)
-    vox = np.asarray(cfg.voxels_per_axis, np.float32)
-    center = np.asarray(cfg.space_center, np.float32)
-    return space / (vox - 1.0), center - space / 2.0
+def _cudnn_net(packed: dict, name: str, net: nn.Module,
+               x: torch.Tensor) -> torch.Tensor:
+    """A task net's cuDNN module on `x`: the model's own (float32), or its
+    bf16 copy in `packed` (engine/packing.py::pack_model for 'bfloat16')
+    on `x` rounded to bf16."""
+    net16 = packed.get("bf16_nets", {}).get(name)
+    return net(x) if net16 is None else net16(x.to(torch.bfloat16))
 
 
 class FasterVoxelPose(nn.Module):
@@ -90,13 +96,13 @@ class FasterVoxelPose(nn.Module):
         if cfg.fuse_p2p and nz % 4 == 0:
             hm1d = c2cnet(packed["c2c_net"], columns)
         else:
-            hm1d = self.pose_net.c2c_net(columns)
+            hm1d = _cudnn_net(packed, "c2c_net", self.pose_net.c2c_net,
+                              columns)
         hm1d = hm1d.reshape(B, K, nz)
 
         z_idx = torch.argmax(hm1d, dim=2)                    # (B, K)
         confs1d = hm1d.amax(dim=2)
-        scale, bias = (torch.as_tensor(a, device=heatmaps.device)
-                       for a in voxel_to_mm(cfg))
+        scale, bias = rc.voxel_to_mm
         idx_xyz = torch.cat([xy, z_idx[:, :, None].to(torch.int32)],
                             dim=2).to(torch.float32)
         centers_mm = idx_xyz * scale + bias                  # (B, K, 3)
@@ -124,7 +130,8 @@ class FasterVoxelPose(nn.Module):
         if cfg.fuse_p2p and hourglass_supported(flat.shape):
             feats = p2pnet(packed["p2p_net"], flat)
         else:
-            feats = self.joint_net.conv_net(flat)
+            feats = _cudnn_net(packed, "conv_net", self.joint_net.conv_net,
+                               flat)
         coords, confs = soft_argmax(feats.reshape(3, B * K, n * n, J),
                                     rc.center_grid, cfg.beta)
         off = offsets.reshape(B * K, 1, 3)

@@ -9,10 +9,18 @@ of fvp_tpu/models/resnet.py::PoseResNet in its serving lowering
 - the stem, conv1 + bn1 + ReLU + 3x3/s2 max pool, is one kernel
   (ops/kernels/stem.py) that reads the NHWC float32 image and writes the
   pooled map in bf16;
-- the trunk is nn.Conv2d + eval-mode BatchNorm in float32 (cuDNN on the
-  card), on channels-last tensors;
+- the trunk is nn.Conv2d + eval-mode BatchNorm (cuDNN on the card), on
+  channels-last tensors: in float32 on the float32 cast of the stem's
+  output; or, packed for `compute_dtype='bfloat16'` (the reference's
+  serving configuration; engine/packing.py::pack_backbone), in bf16 on
+  the stem's bf16 output, on copies of the layers whose convs hold bf16
+  weights (each conv rounding to bf16, each BN applying its float32
+  affine and rounding to bf16, as flax's `dtype=bfloat16` modules do),
+  with a Bottleneck ResNet's layer1 on the bottleneck-stage kernel
+  (ops/kernels/trunk.py, 10 launches for ResNet-50);
 - the head is the deconv kernel, one launch per stage
-  (ops/kernels/deconv_head.py), bf16 out;
+  (ops/kernels/deconv_head.py), bf16 out, reading the bf16 trunk's output
+  as it is and the float32 trunk's rounded to bf16;
 - `final_layer` is a 1x1 conv with bias on the float32 cast of the head.
 
 Parameter names are the reference model's state-dict keys (`conv1`, `bn1`,
@@ -29,6 +37,7 @@ from torch import nn
 
 from fvp_torch.ops.kernels.deconv_head import deconv_head
 from fvp_torch.ops.kernels.stem import stem
+from fvp_torch.ops.kernels.trunk import bottleneck_stage
 
 # depth -> (block kind, blocks per layer); a copy of the reference
 # package's table
@@ -119,17 +128,26 @@ class PoseResNet(nn.Module):
         self.deconv_layers = nn.Sequential(*deconv)
         self.final_layer = nn.Conv2d(256, num_joints, 1)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, packed: dict | None = None
+              ) -> torch.Tensor:
         """The stem's (N, h, w, 64) bf16 output -> layer4's (N, h/8, w/8,
-        C) float32, NHWC."""
-        x = x.float().permute(0, 3, 1, 2)                 # channels-last NCHW
-        for li in range(1, 5):
-            x = getattr(self, f"layer{li}")(x)
+        C), NHWC: float32 on the model's layers, or bf16 where `packed`
+        (pack_backbone's) holds the bf16 copies of the trunk's layers
+        (and layer1 for the stage kernel)."""
+        layers = None if packed is None else packed.get("trunk")
+        if layers is None:
+            x = x.float()
+            layers = [self.layer1, self.layer2, self.layer3, self.layer4]
+        elif "layer1" in packed:
+            x = bottleneck_stage(x, *packed["layer1"])
+        x = x.permute(0, 3, 1, 2)                         # channels-last NCHW
+        for layer in layers:
+            x = layer(x)
         return x.permute(0, 2, 3, 1).contiguous()
 
     def forward(self, images: torch.Tensor, packed: dict) -> torch.Tensor:
         x = stem(images, packed["stem"])                  # (N, h, w, 64) bf16
-        x = deconv_head(self.trunk(x), packed["head"])
+        x = deconv_head(self.trunk(x, packed), packed["head"])
         x = self.final_layer(x.float().permute(0, 3, 1, 2))
         return x.permute(0, 2, 3, 1).contiguous()
 

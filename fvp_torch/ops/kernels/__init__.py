@@ -60,6 +60,22 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+_COUNTERS: dict = {}
+
+
+def last_block_counters(device, n: int) -> torch.Tensor:
+    """At least `n` zeroed int32 counters for a kernel whose last block
+    (of a map, of a person) is found by counting, one buffer for each
+    (device, stream): the kernels leave them zero, and launches on one
+    stream run in order, so each launch finds its stream's counters at
+    zero. Two streams never share counters."""
+    key = (str(device), torch.cuda.current_stream(device).cuda_stream)
+    if key not in _COUNTERS or _COUNTERS[key].numel() < n:
+        _COUNTERS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                     device=device)
+    return _COUNTERS[key]
+
+
 def all_kernels() -> dict[str, Kernel]:
     """name -> Kernel for every kernel entry point of the port."""
     from fvp_torch.ops.kernels import c2cnet, centernet, deconv_head

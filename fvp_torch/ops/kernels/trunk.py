@@ -11,10 +11,10 @@ kernel rounds (`_stage_kernel`): a downsample residual after its affine;
 h = relu(aff(conv1)); y = relu(aff(conv2)); out = relu(aff(conv3) + res),
 with an identity residual the bf16 input.
 
-Like the reference kernel, it is wired into no model: PoseResNet's trunk
-stays float32. `packed` comes from engine/packing.py::pack_bottleneck_stage;
-`blocks_cfg` is a tuple of (cmid, downsample) per block, as the reference
-takes it.
+PoseResNet runs a Bottleneck ResNet's layer1 on it under
+`compute_dtype='bfloat16'` (models/resnet.py::PoseResNet.trunk). `packed`
+comes from engine/packing.py::pack_bottleneck_stage; `blocks_cfg` is a
+tuple of (cmid, downsample) per block, as the reference takes it.
 """
 
 from __future__ import annotations

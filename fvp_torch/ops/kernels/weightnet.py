@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from fvp_torch.ops.kernels import Kernel, check, ptr
+from fvp_torch.ops.kernels import Kernel, check, last_block_counters, ptr
 
 WEIGHTNET_POOL = Kernel("weightnet_pool", "fvp_weightnet_pool")
 
@@ -109,21 +109,6 @@ def weightnet_plan(N: int, A: int, B: int, J: int,
                          _smem(rows, B, joints, threads))
 
 
-_COUNTERS: dict = {}
-
-
-def _counters(device, n: int) -> torch.Tensor:
-    """Zeroed per-map counters of the last-block mean, one buffer for each
-    (device, stream): the kernel leaves them zero, and launches on one
-    stream run in order, so each launch finds its stream's counters at
-    zero. Two streams never share counters."""
-    key = (str(device), torch.cuda.current_stream(device).cuda_stream)
-    if key not in _COUNTERS or _COUNTERS[key].numel() < n:
-        _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
-                                     device=device)
-    return _COUNTERS[key]
-
-
 def weightnet_pool_plain(planes: torch.Tensor, packed: dict) -> torch.Tensor:
     """(N, A, B, J) -> (N, J, C): mean over the pooled map of
     relu(maxpool2(a * conv3x3(x) + b)) per (n, j), on any device."""
@@ -168,6 +153,6 @@ def launch(planes: torch.Tensor, packed: dict, out: torch.Tensor,
                           device=planes.device)
     WEIGHTNET_POOL(ptr(planes), ptr(packed["w"]), ptr(packed["scale"]),
                    ptr(packed["shift"]), ptr(partial),
-                   ptr(_counters(planes.device, N)), ptr(out), N, A, B, J, C,
-                   plan.rows, plan.bands, plan.joints, plan.reps, plan.plane,
-                   plan.smem)
+                   ptr(last_block_counters(planes.device, N)), ptr(out),
+                   N, A, B, J, C, plan.rows, plan.bands, plan.joints,
+                   plan.reps, plan.plane, plan.smem)

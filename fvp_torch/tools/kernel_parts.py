@@ -11,6 +11,7 @@ inputs (flagship widths, seeded weights, frame 0's heatmaps).
     python -m fvp_torch.tools.kernel_parts --kernel c2cnet --set trace
     python -m fvp_torch.tools.kernel_parts --kernel c2cnet --set flips
         --source FILE [--trials 25]
+    python -m fvp_torch.tools.kernel_parts --kernel soft_argmax
 
 Each variant is the source with text substitutions (each must match once,
 or the script fails) and its own nvcc flags, built by its own nvcc (all in
@@ -32,6 +33,10 @@ only their device time counts.
   tile load, the affine (on each conv output, where the kernel now takes
   it after the max), the register budget (two blocks per SM) or the
   channel group (8 a thread) changed (weightnet_pool);
+- soft_argmax, `--set new`: the tree's kernel on its plan at chip_smoke's
+  K4 input, with the loads, the block max, the exponentials, the shuffles
+  of the block's exp-sums, the combine of the last blocks, the fence
+  before a block's count or everything off (`empty`: the launch alone);
 - c2cnet and weightnet_pool, `--set old`: the earlier kernels (one block per
   z-column with scalar FMAs; one block per (n, j) map with strided
   gathers; `git show <commit>:fvp_torch/csrc/c2cnet.cu > FILE`),
@@ -193,6 +198,29 @@ WEIGHTNET_NEW = [
                 (r"constexpr int kMaxThreads = 512;",
                  "constexpr int kMaxThreads = 384;")], []),
 ]
+SOFTARGMAX_NEW = [
+    ("shipped", [], []),
+    ("no_load", [(r"const float4 q = __ldg\(src \+ i\);",
+                  "const float4 q = make_float4(i, 0.5f * tid, 0.25f, g);")],
+     []),
+    ("no_max", [(r"  float m\[16 \* QM\];.*?mb\[j\] = mshared\[j\];",
+                 "  float mb[J];\n#pragma unroll\n  for (int j = 0; j < J; "
+                 "++j) mb[j] = __fmul_rn(v[j], beta);")], []),
+    ("no_exp", [(r"expf\(__fsub_rn\(__fmul_rn\(v\[r \* J \+ j\], beta\), "
+                 r"mb\[j\]\)\)",
+                 "__fsub_rn(__fmul_rn(v[r * J + j], beta), mb[j])")], []),
+    ("no_sum_shuffles", [(r"  warp_reduce_scatter<QS, false>\(acc, lane\);",
+                          "")], []),
+    ("no_combine", [(r"  __syncthreads\(\);\n  if \(tid == 0\) \{\n    "
+                     r"__threadfence\(\);",
+                     "  return;\n  __syncthreads();\n  if (tid == 0) {\n"
+                     "    __threadfence();")], []),
+    ("no_fence", [(r"    __threadfence\(\);\n    last = atomicAdd",
+                   "    last = atomicAdd")], []),
+    ("empty", [(r"  constexpr int T = kThreads;",
+                "  if (beta > 0.f) return;\n  constexpr int T = kThreads;")],
+     []),
+]
 _W = "lane == 0 && blockIdx.x == 0 && (warp == 0 || warp == kWarps - 1)"
 C2C_TRACE = [("trace", [
     (re.escape("__device__ void gemm_phase(const int* ph, unsigned char* sm,"),
@@ -232,7 +260,8 @@ SETS = {("person_planes", "old"): PERSON_OLD,
         ("c2cnet", "trace"): C2C_TRACE,
         ("c2cnet", "flips"): [("old", [], [])],
         ("weightnet_pool", "old"): WEIGHTNET_OLD,
-        ("weightnet_pool", "new"): WEIGHTNET_NEW}
+        ("weightnet_pool", "new"): WEIGHTNET_NEW,
+        ("soft_argmax", "new"): SOFTARGMAX_NEW}
 OUT = Path("build") / "parts"
 
 
@@ -476,6 +505,31 @@ def weightnet_call(kind):
     return make
 
 
+def softargmax_call(kind):
+    """A function of the variant's library that runs the tree's soft_argmax
+    launch on chip_smoke's K4 input (P2PNet's output of K2's planes, (3,
+    10, 4096, 15)), on its plan."""
+    import torch
+
+    from fvp_torch.ops.kernels import softargmax as ksa
+
+    pred, hm = _smoke_predictor()
+    feats = smoke_features(pred, hm)
+    N, A, B, J = feats.shape
+    fl = feats.reshape(3, N // 3, A * B, J)
+    grid = pred.rc.center_grid
+    plan = ksa.softargmax_plan(*fl.shape)
+    coords = torch.empty((3, N // 3, J, 2), device="cuda")
+    confs = torch.empty((N // 3,), device="cuda")
+
+    def make(lib):
+        def run():
+            _build._lib = lib
+            ksa.launch(fl, grid, pred.cfg.beta, coords, confs, plan)
+        return run
+    return make
+
+
 def _card_test_packed(J: int):
     """The card test's C2CNet weights (tests/test_torch_kernels_cuda.py::
     _fuse_model)."""
@@ -563,7 +617,8 @@ def c2cnet_flips(old, trials: int) -> list[dict]:
 
 OPTIONS: dict = {}       # --rows of weightnet_pool's plan
 CALLS = {"person_planes": person_call, "centernet": centernet_call,
-         "c2cnet": c2cnet_call, "weightnet_pool": weightnet_call}
+         "c2cnet": c2cnet_call, "weightnet_pool": weightnet_call,
+         "soft_argmax": softargmax_call}
 
 
 def main() -> int:
@@ -591,7 +646,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card, flush=True)
-    stem = "weightnet" if args.kernel == "weightnet_pool" else args.kernel
+    stem = {"weightnet_pool": "weightnet",
+            "soft_argmax": "softargmax"}.get(args.kernel, args.kernel)
     source = Path(args.source or _build.CSRC / f"{stem}.cu")
     variants = SETS[(args.kernel, args.set)]
     if args.variants:

@@ -1,8 +1,7 @@
-"""Predictor refuses a compute_dtype it does not serve.
-
-The reference package builds its nets in `cfg.compute_dtype`; the port
-runs float32 only, so a bf16 config must fail at setup rather than be
-served in float32 with poses that differ from the reference's."""
+"""Predictor serves the compute_dtypes of the reference package's
+configurations, float32 and bfloat16 (its serving configuration), and
+refuses any other at setup rather than serve it in another dtype with
+poses that differ from the reference's."""
 
 import pytest
 import torch
@@ -33,9 +32,34 @@ def _predictor(cfg, backbone: bool):
 
 
 @pytest.mark.parametrize("backbone", [False, True])
-def test_bfloat16_is_refused(backbone):
+def test_other_dtypes_are_refused(backbone):
     with pytest.raises(ValueError, match="compute_dtype"):
-        _predictor(_cfg(compute_dtype="bfloat16"), backbone)
+        _predictor(_cfg(compute_dtype="float16"), backbone)
+
+
+@pytest.mark.parametrize("backbone", [False, True])
+def test_bfloat16_builds(backbone):
+    """The bf16 predictor: its packed weights hold bf16 copies of the
+    task nets (float32 heads) and (ResNet-18: all four layers on cuDNN, no
+    stage kernel) of the trunk's layers; the model's own parameters stay
+    float32."""
+    pred = _predictor(_cfg(compute_dtype="bfloat16"), backbone)
+    nets = pred.packed["bf16_nets"]
+    assert nets["conv_net"].front_layers[0].block[0].weight.dtype \
+        == torch.bfloat16
+    assert nets["conv_net"].front_layers[0].block[1].weight.dtype \
+        == torch.float32                         # BN
+    assert nets["conv_net"].output_layer.weight.dtype == torch.float32
+    assert nets["c2c_net"].output_hm.weight.dtype == torch.float32
+    conv = pred.model.joint_net.conv_net.front_layers[0].block[0]
+    assert conv.weight.dtype == torch.float32
+    if backbone:
+        assert pred.backbone_packed["compute_dtype"] == "bfloat16"
+        assert "layer1" not in pred.backbone_packed
+        trunk = pred.backbone_packed["trunk"]
+        assert len(trunk) == 4
+        assert trunk[0][0].conv1.weight.dtype == torch.bfloat16
+        assert pred.backbone.layer1[0].conv1.weight.dtype == torch.float32
 
 
 @pytest.mark.parametrize("backbone", [False, True])

@@ -211,19 +211,54 @@ def test_centernet_stages_one_by_one(dev, shape):
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("J,N", [(15, 256), (17, 4096)])
-def test_soft_argmax_kernel(dev, J, N):
+@pytest.mark.parametrize("J,P,N", [(15, 4, 256), (17, 4, 4096),
+                                   (15, 1, 4096), (17, 1, 4096),
+                                   (15, 10, 4096), (17, 10, 4096),
+                                   (15, 30, 4096), (17, 30, 4096),
+                                   (17, 2, 1000)])
+def test_soft_argmax_kernel(dev, J, P, N):
+    """One launch a call (G = 1 .. 8 blocks a map of 512 rows; N = 1000
+    leaves the last block a ragged chunk), two calls
+    bitwise equal (the blocks' partials and the confidences are added in a
+    fixed order)."""
     rng = np.random.RandomState(1)
-    planes = rng.randn(3, 4, N, J).astype(np.float32) * 0.05
+    planes = rng.randn(3, P, N, J).astype(np.float32) * 0.05
     planes[:, :, rng.randint(0, N), :] += 1.0
+    planes = torch.as_tensor(planes, device=dev)
+    grid = torch.as_tensor(rng.uniform(-1000, 1000, (3, N, 2))
+                           .astype(np.float32), device=dev)
+    before = ksa.SOFT_ARGMAX.launches
+    c, p = ksa.soft_argmax(planes, grid, 100.0)
+    assert ksa.SOFT_ARGMAX.launches == before + 1
+    c_r, p_r = ksa.soft_argmax_plain(planes, grid, 100.0)
+    # softmax sums in another order: ~1e-6 relative of mm coords
+    torch.testing.assert_close(c, c_r, rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(p, p_r, rtol=1e-5, atol=1e-6)
+    c2, p2 = ksa.soft_argmax(planes, grid, 100.0)
+    assert torch.equal(c2, c) and torch.equal(p2, p)
+
+
+@pytest.mark.parametrize("J", [15, 17])
+def test_soft_argmax_peak_in_the_last_chunk(dev, J):
+    """Each map's maximum in the last block's chunk (its last row, and one
+    map with it in the first row): the other blocks' exp-sums are rescaled
+    by exp(beta (m_g - m_map)) ~ 0 and the last block's carry the map."""
+    rng = np.random.RandomState(2)
+    P, N = 10, 4096
+    plan = ksa.softargmax_plan(3, P, N, J)
+    assert plan.ctas_per_map > 1
+    planes = rng.randn(3, P, N, J).astype(np.float32) * 0.05
+    planes[:, :, N - 1, :] += 1.0
+    planes[0, 0, N - 1, :] -= 1.0
+    planes[0, 0, 0, :] += 1.0
     planes = torch.as_tensor(planes, device=dev)
     grid = torch.as_tensor(rng.uniform(-1000, 1000, (3, N, 2))
                            .astype(np.float32), device=dev)
     c, p = ksa.soft_argmax(planes, grid, 100.0)
     c_r, p_r = ksa.soft_argmax_plain(planes, grid, 100.0)
-    # softmax sums in another order: ~1e-6 relative of mm coords
     torch.testing.assert_close(c, c_r, rtol=1e-5, atol=1e-2)
     torch.testing.assert_close(p, p_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(c[1, 3, 0], grid[1, N - 1], rtol=0, atol=1.0)
 
 
 @pytest.mark.parametrize("shape,rows", [
@@ -328,6 +363,12 @@ def test_wrappers_reject_bad_cuda_input(dev):
         ksa.soft_argmax(torch.zeros((3, 2, 64, 15), device=dev,
                                     dtype=torch.float64),
                         torch.zeros((3, 64, 2), device=dev), 100.0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ksa.soft_argmax(torch.zeros((3, 2, 66, 15), device=dev),
+                        torch.zeros((3, 66, 2), device=dev), 100.0)
+    with pytest.raises(ValueError, match="joints"):
+        ksa.soft_argmax(torch.zeros((3, 2, 64, 16), device=dev),
+                        torch.zeros((3, 64, 2), device=dev), 100.0)
     with pytest.raises(ValueError, match="Cin % 64"):
         kdh.deconv_stage(torch.zeros((1, 2, 2, 32), device=dev),
                          {"w": torch.zeros((4, 4, 32, 128), device=dev,
@@ -341,7 +382,7 @@ def test_wrappers_reject_bad_cuda_input(dev):
 
 
 # kernels the default heatmap path does not launch: the backbone's, the
-# fuse_p2p path's and the bottleneck stage (on no model path)
+# fuse_p2p path's and the bottleneck stage (the bf16 image path's layer1)
 _FUSE_ONLY = ("p2pnet.conv.wgmma", "p2pnet.conv.wmma", "p2pnet.pool",
               "c2cnet")
 _STAGE = ("bottleneck_stage.wgmma", "bottleneck_stage.wmma")
@@ -629,3 +670,52 @@ def test_fuse_p2p_predictor_cuda_matches_cpu(dev):
     # bf16 flips between the card's and the CPU's sums move the soft-argmax
     torch.testing.assert_close(got["fused_poses"].cpu(), ref["fused_poses"],
                                rtol=0, atol=1.0)
+
+
+@pytest.mark.parametrize("H,W", [(64, 96), (72, 104)])
+def test_bf16_trunk_cuda_matches_plain(dev, H, W):
+    """The bf16 trunk of a seeded ResNet-50: layer1 on the stage kernel (10
+    conv_wgmma launches) and layers 2-4 as bf16 cuDNN copies, against its
+    plain version (the stage's plain version, the same modules), and the
+    whole bf16 backbone against the CPU's, at bf16 tolerance: each launch
+    rounds like its plain op within one ulp, and flips carry on through
+    the 16 blocks (2e-2 of the scale, as chip_smoke.py holds the heatmaps);
+    (72, 104) leaves ragged stage tiles."""
+    from fvp_torch.engine.packing import pack_backbone
+    from fvp_torch.models.resnet import PoseResNet, seeded_state_dict
+
+    state = seeded_state_dict(PoseResNet(15, 50), seed=0)
+    nets = {}
+    for where in (dev, torch.device("cpu")):
+        m = PoseResNet(15, 50)
+        m.load_state_dict(state)
+        m = m.eval().to(where)
+        nets[where.type] = (m, pack_backbone(m, "bfloat16"))
+    model, packed = nets["cuda"]
+    images = torch.as_tensor(np.random.RandomState(4).randn(2, H, W, 3)
+                             .astype(np.float32), device=dev)
+    with torch.inference_mode():
+        x = kst.stem(images, packed["stem"])
+        reset_launches()
+        got = model.trunk(x, packed)
+        assert ktr.CONV.wgmma.launches == 10 and ktr.CONV.wmma.launches == 0
+        layer1 = ktr.bottleneck_stage_plain(x, *packed["layer1"])
+        ref = _trunk_after_layer1(packed, layer1)
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        scale = float(ref.float().abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=2e-2 * scale)
+        hm = model(images, packed)
+        cpu, cpu_packed = nets["cpu"]
+        hm_cpu = cpu(images.cpu(), cpu_packed)
+    scale = float(hm_cpu.abs().max())
+    torch.testing.assert_close(hm.cpu(), hm_cpu, rtol=0, atol=2e-2 * scale)
+
+
+def _trunk_after_layer1(packed, x):
+    """Layers 2-4, the bf16 copies in `packed`, on layer1's NHWC bf16
+    output."""
+    x = x.permute(0, 3, 1, 2)
+    for layer in packed["trunk"]:
+        x = layer(x)
+    return x.permute(0, 2, 3, 1).contiguous()

@@ -178,7 +178,8 @@ def test_launch_arguments_match_the_entry_point(monkeypatch):
     calls = []
     monkeypatch.setattr(Kernel, "__call__",
                         lambda self, *a: calls.append((self.fn, a)))
-    monkeypatch.setattr(kw, "_counters", lambda device, n: torch.zeros(n))
+    monkeypatch.setattr(kw, "last_block_counters",
+                        lambda device, n: torch.zeros(n))
     plan = kw.weightnet_plan(2, 40, 24, 15, 16)
     kw.launch(torch.zeros(2, 40, 24, 15), _packed(), torch.empty(2, 15, 32),
               plan)
