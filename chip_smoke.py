@@ -60,7 +60,18 @@ non-zero:
    CPU's bf16 backbone and frame 0's poses against the CPU's bf16 HDN+JLN
    on the card's heatmaps, and prints its poses' distance from the float32
    frame's as information;
-8. prints one JSON line of the kernels, then the result line.
+8. drives the eval engine (`run_validation`) on the card: the held-out
+   synthetic protocol of configs/test/synthetic_convergence_r5.yaml at
+   full width (device render with augmentation, up to 5 people a scene),
+   20 scenes at the config's test batch of 8 (8, 8 and 4 padded),
+   with every launch count set to 0 just before; checks that K1..K5 ran
+   once a batch and nothing else did, prints FPS, batch_ms and the
+   metrics beside the card's name and power limit, holds the first
+   batch's 8 frames run one by one against the batched run (identical
+   masks, within 1e-3 mm), two of its frames against the CPU (identical
+   masks, within 5e-2 mm), the device splat against the numpy renderer
+   (within 1e-5), and prints a profile of a batch;
+9. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
 for cuDNN convs and matmuls, so that the card's plain path and the float32
@@ -128,6 +139,38 @@ FUSE_POSE_TOL_MM = 1.0
 # 1.2e-2 of their scale apart).
 BF16_POSE_TOL_MM = 3.0
 BF16_TIE_RTOL = 2e-2
+# The eval phase: the held-out synthetic protocol of this config at full
+# width (5 views, 240x128 heatmaps rendered on the card with augmentation,
+# an 80x80x20 space, K = 10 in 64^3 cubes), EVAL_SCENES scenes at the
+# config's test batch of 8: batches of 8, 8 and 4 padded to 8.
+EVAL_CFG = "configs/test/synthetic_convergence_r5.yaml"
+EVAL_SCENES = 20
+# Its gate is chosen at run time, in the widest gap between the first
+# batch's 80 detection confidences on the card that leaves at least two of
+# frames 0-1's people above it and one below (printed); asserted:
+# at least two people of the CPU's two frames pass, and no confidence of
+# the card's batch or the CPU's frames lies within 1e-4 of it.
+# The first batch's 8 frames, each run alone on the card, against the
+# batched run: the kernels must not mix frames or people (mm).
+EVAL_BATCH_TOL_MM = 1e-3
+# full batches of 8 timed after run_validation (it times two batches here)
+EVAL_FULL_BATCHES = 20
+# The eval batch's device time by kind: the port's kernels (K1-K5), cuDNN
+# (the float32 C2CNet and P2PNet: convs, BN, layout transposes), copies and
+# fills, and PyTorch's own kernels (the splat's passes, the model's
+# elementwise ops and reductions).
+EVAL_PROFILE_GROUPS = [
+    ("K1-K5", ("whole_sample_kernel", "person_layout_kernel",
+               "person_planes_kernel", "centernet_kernel",
+               "soft_argmax_kernel", "weightnet_pool_kernel")),
+    ("cuDNN", ("cudnn", "xmma", "implicit_gemm", "convolve", "gemm",
+               "Nhwc", "Nchw")),
+    ("copies", ("Memcpy", "Memset")),
+    ("torch ops", ("at::native",)),
+]
+# The device splat against the numpy renderer (as tests/test_device_render
+# holds the reference's).
+RENDER_ATOL = 1e-5
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -573,10 +616,13 @@ def main() -> int:
     check_poses_bf16(outs[0], pred_bf16, cpu_bf16, hm_bf16)
     pose_distance(outs[0], img_outs[0])
 
+    # 8. the eval engine: run_validation at the reference's eval batch
+    eval_launches, eval_res = eval_phase(K, state, smi, rows)
+
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
-             "bf16_image_path": bf16_launches}
+             "bf16_image_path": bf16_launches, "eval_path": eval_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage"):
@@ -595,6 +641,10 @@ def main() -> int:
                         fuse_steady),
                     "bf16_image_frame_ms_median": statistics.median(
                         bf16_steady),
+                    "eval_fps": eval_res["fps"],
+                    "eval_batch_ms": eval_res["batch_ms"],
+                    "eval_full_batch_ms": eval_res["full_batch_ms"],
+                    "eval_parts_ms": eval_res["parts_ms"],
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -660,13 +710,18 @@ def report(rows, name, source, replaces, err, tol, ms, plain_ms, lib_ms,
     log(f"{name}: max_abs_err={err:.3e} tol={tol:.1e} kernel_ms={ms:.4f}"
         f" plain_ms={plain_ms:.4f} library_ms={lib_ms} bound_ms="
         f"{bnd[0]:.4f} ({bnd[1]})")
-    if not err <= tol:
-        raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version: {err} > {tol}")
+    held(name, err, tol)
     rows[name] = {"name": name, "route": "cuda", "source": source,
                   "replaces": replaces, "max_abs_err": err, "tol": tol,
                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                   "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def held(name, err, tol, where="") -> None:
+    """Fail unless a kernel's output is within tol of its plain version's."""
+    if not err <= tol:
+        raise AssertionError(f"{name}{where}: kernel disagrees with its "
+                             f"plain version: {err} > {tol}")
 
 
 def centernet_kernel(pc, vol, model, rows) -> None:
@@ -1447,23 +1502,294 @@ def check_poses(out, cpu, hm, label, tol_mm: float = 5e-2) -> None:
     if passed < 2 or gap <= 1e-4:
         raise AssertionError(f"vacuous or fragile gate: {passed} pass, "
                              f"closest confidence {gap} from min_score")
-    if not torch.equal(got["mask"], ref["mask"]):
-        raise AssertionError("masks differ between the card and the CPU")
-    for k in ("fused_poses", "proposals"):
-        a, b = got[k], ref[k]
-        if a.shape != b.shape or not torch.isfinite(a).all():
-            raise AssertionError(f"{k}: shape {tuple(a.shape)} or non-finite")
-    err = float((got["fused_poses"] - ref["fused_poses"]).abs().max())
-    log(f"{label}fused_poses {tuple(got['fused_poses'].shape)}: card vs CPU "
-        f"max_abs_err {err:.3e} mm (tol {tol_mm:.0e} mm)")
+    p = got["proposals"]
+    if p.shape != ref["proposals"].shape or not torch.isfinite(p).all():
+        raise AssertionError(f"proposals: shape {tuple(p.shape)} or "
+                             "non-finite")
+    check_fused(got["fused_poses"], ref["fused_poses"], label, tol_mm)
+
+
+def eval_phase(K, state, smi, rows):
+    """Phase 8: the eval engine on the card. run_validation on EVAL_CFG's
+    held-out scenes at its test batch of 8 with every launch count set to
+    0 just before; K1-K5 once a batch and no other kernel; then batch 0's
+    8 frames one by one against the batched run, two of its frames on the
+    CPU, the device splat against the numpy renderer, and a profile of a
+    batch, and K1-K5 timed on the batch's own tensors beside their times
+    at B = 1 (phase 3, `rows`). Returns (launches, run_validation's
+    result)."""
+    import torch
+    from fvp_torch.config import load_config
+    from fvp_torch.data.heatmaps import generate_input_heatmap
+    from fvp_torch.data.loader import build_samples, collate
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.engine.serve import Engine
+    from fvp_torch.engine.validate import (RENDER_KEYS, batch_input,
+                                           eval_batches, eval_rng,
+                                           make_eval_step, run_validation)
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.ops.heatmap_render import render_heatmaps_device
+
+    dev = torch.device("cuda")
+    base = load_config(EVAL_CFG, synthetic_num_data=EVAL_SCENES)
+    ds = build_dataset(base.test_dataset, base, is_train=False)
+    rig = ds.rigs["synthetic"]
+    specs = list(eval_batches(ds, base.test_batch_size))
+    log(f"eval phase: {EVAL_CFG}, {len(ds)} held-out scenes of up to "
+        f"{base.synthetic_max_people} people, batches "
+        f"{[int(v) for _, _, v in specs]} of {base.test_batch_size} "
+        f"(padded), device render {base.device_render}, augmentation "
+        f"{ds.data_augmentation}, {base.compute_dtype}")
+    # batch 0's inputs as run_validation draws them (its fixed eval RNG)
+    idx0 = specs[0][1]
+    x0 = batch_input(collate(build_samples(ds, idx0, rng=eval_rng(base))),
+                     dev)
+
+    def engine(cfg, device):
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(state)
+        return Engine(cfg, model, device)
+
+    # the gate: the widest gap between batch 0's confidences that leaves
+    # at least two of frames 0-1's people (the ones held against the CPU)
+    # above it and one below
+    probe = engine(base, dev)
+    rc = probe.rig_constants(rig)
+    with torch.inference_mode():
+        hm0 = render_heatmaps_device(base, *(x0[k] for k in RENDER_KEYS))
+        conf = probe.model.detect(hm0, rc, probe.packed)["proposals"][..., 4]
+    cb = conf.cpu().numpy()
+    c = np.sort(cb.ravel())
+    f01 = cb[:2].ravel()
+    fits = [i for i in range(len(c) - 1)
+            if (f01 > c[i]).sum() >= 2 and (f01 <= c[i]).sum() >= 1]
+    i = max(fits, key=lambda i: c[i + 1] - c[i])
+    cfg = base.replace(min_score=float((c[i] + c[i + 1]) / 2))
+    log(f"eval gate: min_score {cfg.min_score:.6f} in the widest gap "
+        f"({c[i]:.6f} .. {c[i + 1]:.6f}) of batch 0's {len(c)} detection "
+        f"confidences ({c[0]:.4f} .. {c[-1]:.4f}) with at least two of "
+        f"frames 0-1 above it; {len(c) - i - 1} above it in all")
+
+    # run_validation: counts to 0, the run, counts read back
+    model = FasterVoxelPose(cfg)
+    model.load_state_dict(state)
+    K.reset_launches()
+    res = run_validation(cfg, model, ds, device=dev, log=log)
+    counts = launch_counts(K)
+    log(f"eval path: {len(specs)} batches, launches {counts}")
+    expect_launches(counts, HEATMAP_PATH, "eval path")
+    for name in HEATMAP_PATH:
+        if counts[name] != len(specs):
+            raise AssertionError(f"eval path: {name} launched "
+                                 f"{counts[name]} times in {len(specs)} "
+                                 "batches, expected one a batch")
+    poses = res["fused_poses"]
+    if poses.shape != (len(ds), cfg.max_people, cfg.num_joints, 5) \
+            or not np.isfinite(poses).all():
+        raise AssertionError(f"eval fused_poses {poses.shape} or non-finite")
+    log(f"eval on {smi}: {res['fps']:.2f} frames/s (first batch excluded), "
+        f"batch_ms {json.dumps(res['batch_ms'])}; people kept "
+        f"{int((poses[..., 0, 3] >= 0).sum())} of {poses[..., 0, 3].size}")
+    log(f"eval metrics (seeded random weights): "
+        f"{json.dumps(res['metrics'], default=float)}")
+
+    # batch 0 batched and frame by frame through the same packed model
+    e = Engine(cfg, model, dev)
+    step = make_eval_step(cfg, e.model, e.packed)
+    batched = step(x0, rc).cpu()
+    ran = torch.from_numpy(poses[idx0])
+    if not torch.equal(batched, ran):
+        raise AssertionError("batch 0 differs from run_validation's: "
+                             f"{float((batched - ran).abs().max()):.3e}")
+    single = torch.cat([step({k: v[b:b + 1] for k, v in x0.items()}, rc)
+                        .cpu() for b in range(len(idx0))])
+    masks = (batched[..., 0, 3] >= 0, single[..., 0, 3] >= 0)
+    err = float((batched - single).abs().max())
+    log(f"eval batch 8 vs batch 1 on the card: masks identical "
+        f"{bool(torch.equal(*masks))} ({int(masks[0].sum())} kept), "
+        f"fused_poses max_abs_err {err:.3e} mm (tol "
+        f"{EVAL_BATCH_TOL_MM:.0e} mm)")
+    if not torch.equal(*masks) or not err <= EVAL_BATCH_TOL_MM:
+        raise AssertionError("batch 8 and batch 1 differ on the card")
+
+    # two of batch 0's frames on the CPU (the plain path)
+    cpu = engine(cfg, "cpu")
+    rc_cpu = cpu.rig_constants(rig)
+    x_cpu = {k: v[:2].cpu() for k, v in x0.items()}
+    with torch.inference_mode():
+        hm_cpu = render_heatmaps_device(cfg, *(x_cpu[k]
+                                               for k in RENDER_KEYS))
+        c_cpu = cpu.model.detect(hm_cpu, rc_cpu, cpu.packed)[
+            "proposals"][..., 4]
+    ref = make_eval_step(cfg, cpu.model, cpu.packed)(x_cpu, rc_cpu)
+    gap = min(float((c_cpu - cfg.min_score).abs().min()),
+              float((conf - cfg.min_score).abs().min()))
+    passed = int((ref[..., 0, 3] >= 0).sum())
+    log(f"eval card vs CPU, frames 0-1: {passed} people pass the gate on "
+        f"the CPU, closest confidence {gap:.3e} from it")
+    if passed < 2 or gap <= 1e-4:
+        raise AssertionError(f"vacuous or fragile gate: {passed} pass, "
+                             f"closest confidence {gap} from min_score")
+    check_fused(batched[:2], ref, "eval frames 0-1 ")
+
+    # the device splat against the numpy renderer on the same draws
+    hm_np = np.stack([numpy_render(ds, int(r), x0, b, generate_input_heatmap)
+                      for b, r in enumerate(idx0)])
+    err = float(np.abs(hm0.cpu().numpy() - hm_np).max())
+    log(f"eval device render {tuple(hm0.shape)} vs the numpy renderer: "
+        f"max_abs_err {err:.3e} (tol {RENDER_ATOL:.0e}), peak "
+        f"{float(hm_np.max()):.3f}")
+    if not err <= RENDER_ATOL or not hm_np.max() > 0.5:
+        raise AssertionError("device render differs from the numpy one")
+
+    # where a batch's time goes: render, K1-K5, cuDNN nets, copies, host
+    profile_frames(lambda x: step(x, rc), [x0], unit="batch",
+                   groups=EVAL_PROFILE_GROUPS)
+    batch_kernels(cfg, e, rc, hm0, rows)
+    with torch.inference_mode():
+        # spins longer than each call's host enqueue (~200 launches for
+        # the splat, the model's many more)
+        render_ms = time_ms(lambda: render_heatmaps_device(
+            cfg, *(x0[k] for k in RENDER_KEYS)), reps=10, spin=LONG_SPIN)
+        model_ms = time_ms(lambda: e.model(hm0, rc, e.packed), reps=10,
+                           spin=4 * LONG_SPIN)
+    log(f"eval batch parts, each alone (device time): the splat "
+        f"{render_ms:.3f} ms, the model {model_ms:.3f} ms")
+    res["parts_ms"] = {"render": render_ms, "model": model_ms}
+
+    # run_validation times only two batches here, one of them half
+    # padding: batch 0 stepped as it steps a batch (host clock between two
+    # synchronisations), EVAL_FULL_BATCHES times after one warm-up
+    full = []
+    for _ in range(EVAL_FULL_BATCHES + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(x0, rc)
+        torch.cuda.synchronize()
+        full.append((time.perf_counter() - t) * 1e3)
+    full = full[1:]
+    med = statistics.median(full)
+    log(f"eval full batches: batch 0 stepped {len(full)} times, median "
+        f"{med:.3f} ms ({min(full):.3f} .. {max(full):.3f}), "
+        f"{len(idx0) * 1e3 / med:.2f} frames/s at B = {len(idx0)}")
+    res["full_batch_ms"] = full
+    return counts, res
+
+
+def batch_kernels(cfg, e, rc, hm, rows) -> None:
+    """K1-K5 on batch 0's tensors, B = 8 frames and P = 80 people (the
+    kept ones sampled by person_planes): each against its plain version on
+    the same inputs with phase 3's tolerances, and timed alone (CUDA
+    events, as phase 3) beside its B = 1 time there."""
+    import torch
+    from fvp_torch.ops.kernels import centernet as kcn
+    from fvp_torch.ops.kernels import sampler as ksamp
+    from fvp_torch.ops.kernels import softargmax as ksa
+    from fvp_torch.ops.kernels import weightnet as kwn
+
+    B, K, J = hm.shape[0], cfg.max_people, cfg.num_joints
+    n = cfg.ind_voxels_per_axis[0]
+    pc, pw, grid = e.packed["center_net"], e.packed["weight_net"], \
+        rc.center_grid
+    errs = {}
+    with torch.inference_mode():
+        vol = ksamp.whole_sample(hm, rc, cfg)
+        vol_p = ksamp.whole_sample_plain(hm, rc, cfg)
+        errs["whole_sample"] = (float((vol - vol_p).abs().max()), 1e-5)
+        bev = vol.amax(dim=3).contiguous()
+        hm_k, size_k = kcn.centernet_forward(pc, bev)
+        hm_p, size_p = kcn.centernet_plain(pc, bev)
+        scale = float(max(hm_p.abs().max(), size_p.abs().max()))
+        errs["centernet"] = (float(max((hm_k - hm_p).abs().max(),
+                                       (size_k - size_p).abs().max())),
+                             1e-4 * max(scale, 1.0))
+        props = e.model.detect(hm, rc, e.packed)["proposals"]
+        mask = props[..., 3] >= 0
+        planes, _ = ksamp.person_planes(hm, rc, cfg, props[..., :3],
+                                        props[..., 5:7], mask)
+        corner, start, end, _ = ksamp.person_bounds(props[..., :3],
+                                                    props[..., 5:7], mask,
+                                                    cfg)
+        planes_p = ksamp.person_planes_plain(hm, rc, cfg, corner, start,
+                                             end)
+        if not torch.equal(planes > 0, planes_p > 0):
+            raise AssertionError(f"person_planes at B = {B}: zero patterns "
+                                 "differ")
+        errs["person_planes"] = (float((planes - planes_p).abs().max()),
+                                 1e-4)
+        feats = e.model.joint_net.conv_net(planes.reshape(3 * B * K, n, n, J))
+        fl = feats.reshape(3, B * K, n * n, J).contiguous()
+        feats = feats.contiguous()
+        c_k, p_k = ksa.soft_argmax(fl, grid, cfg.beta)
+        c_p, p_p = ksa.soft_argmax_plain(fl, grid, cfg.beta)
+        errs["soft_argmax"] = (float(max((c_k - c_p).abs().max(),
+                                         (p_k - p_p).abs().max())), 1e-2)
+        w_k = kwn.weightnet_pool(feats, pw)
+        w_p = kwn.weightnet_pool_plain(feats, pw)
+        errs["weightnet_pool"] = (float((w_k - w_p).abs().max()),
+                                  1e-4 * max(float(w_p.abs().max()), 1.0))
+        times = {
+            "whole_sample": time_ms(lambda: ksamp.whole_sample(hm, rc, cfg)),
+            "centernet": time_ms(lambda: kcn.centernet_forward(pc, bev)),
+            "person_planes": time_ms(lambda: ksamp.person_planes(
+                hm, rc, cfg, props[..., :3], props[..., 5:7], mask),
+                spin=LONG_SPIN),
+            "soft_argmax": time_ms(lambda: ksa.soft_argmax(fl, grid,
+                                                           cfg.beta)),
+            "weightnet_pool": time_ms(lambda: kwn.weightnet_pool(feats, pw)),
+        }
+    log(f"eval kernels at B = {B}, P = {B * K} ({int(mask.sum())} people "
+        "kept; person_planes samples only those), each against its plain "
+        "version on the same inputs, and timed against B = 1 (phase 3; "
+        "person_planes there: 10 full cubes):")
+    for name, ms in times.items():
+        err, tol = errs[name]
+        rows[name].update(eval_batch_ms=ms, eval_batch_max_abs_err=err,
+                          eval_batch_tol=tol)
+        log(f"  {name:15s} max_abs_err {err:.3e} (tol {tol:.1e}); "
+            f"{ms:8.4f} ms at B = {B}, {rows[name]['ms']:8.4f} ms at B = 1 "
+            f"({ms / rows[name]['ms']:.2f}x)")
+        held(name, err, tol, f" at B = {B}")
+
+
+def numpy_render(ds, rec: int, x, b: int, render) -> np.ndarray:
+    """Record `rec`'s views rendered by the numpy renderer `render` with
+    the augmentation draws packed in row b of the render parameters x:
+    (V, J, h, w)."""
+    views_2d, views_vis = ds._project_gt_views(ds.records[rec])
+    return np.stack([
+        render(ds.cfg, j2d, joints_vis=jv, augment=ds.data_augmentation,
+               draws=(x["scale"][b, v].cpu().numpy(),
+                      x["occ"][b, v].cpu().numpy()))
+        for v, (j2d, jv) in enumerate(zip(views_2d, views_vis))])
+
+
+def check_fused(got, ref, label, tol_mm: float = 5e-2) -> None:
+    """Fused poses (B, K, J, 5) of the card against the CPU's: identical
+    masks, finite, within tol_mm."""
+    import torch
+
+    if not torch.equal(got[..., 0, 3] >= 0, ref[..., 0, 3] >= 0):
+        raise AssertionError(f"{label}masks differ between card and CPU")
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}shape {tuple(got.shape)} or "
+                             "non-finite")
+    err = float((got - ref).abs().max())
+    log(f"{label}fused_poses {tuple(got.shape)}: card vs CPU max_abs_err "
+        f"{err:.3e} mm (tol {tol_mm:.0e} mm)")
     if not err <= tol_mm:
-        raise AssertionError("fused_poses differ between card and CPU")
+        raise AssertionError(f"{label}fused_poses differ between card and "
+                             "CPU")
 
 
-def profile_frames(pred, frames, n: int = 3) -> None:
+def profile_frames(pred, frames, n: int = 3, unit: str = "frame",
+                   groups=None) -> None:
     """Device time by kernel over n frames (torch.profiler), and the share
     of the window in which the card was busy. Prints "not measured" where
-    the profiler records no device time."""
+    the profiler records no device time. `unit` names what `pred` takes
+    (a frame, or the eval phase's batch); `groups`, [(kind, substrings of
+    kernel names)], also sums the device time by kind, the first match
+    winning."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1491,12 +1817,22 @@ def profile_frames(pred, frames, n: int = 3) -> None:
     if busy == 0:
         log("profile: device time not measured (no device events)")
         return
-    log(f"profile over {n} frames: device busy {busy / n / 1e3:.3f} ms per "
-        f"frame of {wall_us / n / 1e3:.3f} ms wall under the profiler "
+    units = unit + ("es" if unit.endswith("h") else "s")
+    log(f"profile over {n} {units}: device busy {busy / n / 1e3:.3f} ms per "
+        f"{unit} of {wall_us / n / 1e3:.3f} ms wall under the profiler "
         f"({100 * busy / wall_us:.1f}% busy)")
     for us, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"  {us / n / 1e3:8.4f} ms/frame  {count / n:6.1f} calls/frame  "
-            f"{key[:90]}")
+        log(f"  {us / n / 1e3:8.4f} ms/{unit}  {count / n:6.1f} "
+            f"calls/{unit}  {key[:90]}")
+    if groups:
+        sums = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
+        for us, _, key in rows:
+            sums[next((g for g, marks in groups
+                       if any(m in key for m in marks)), "other")] += us
+        idle = 100 * (1 - busy / wall_us)
+        log(f"  by kind, ms/{unit}: " + ", ".join(
+            f"{g} {v / n / 1e3:.3f}" for g, v in sums.items())
+            + f"; the card idle (the host's share) {idle:.1f}% of the wall")
 
 
 def _leaves(tree):

@@ -1,7 +1,9 @@
 """Serving: a Predictor that answers frames with fused poses.
 
-It holds the model, the rig constants and the packed kernel weights on one
-device, and runs the eval forward per frame. A frame is heatmaps, or, when
+`Engine` holds the model (and a backbone), their packed kernel weights and
+the rig constants on one device; `Predictor` is an engine with one rig
+that runs the eval forward per frame, and engine/validate.py evaluates
+datasets through an engine. A frame is heatmaps, or, when
 the predictor holds a backbone, normalized images. It runs on `cuda` unless
 the caller passes a device; without a card and without an explicit device
 it raises rather than fall back to the host. `cfg.compute_dtype` is
@@ -20,7 +22,7 @@ from fvp_torch.config import FVPConfig
 from fvp_torch.engine.packing import (check_compute_dtype, pack_backbone,
                                       pack_model)
 from fvp_torch.geometry.cameras import CameraRig
-from fvp_torch.geometry.grids import build_rig_constants
+from fvp_torch.geometry.grids import RigConstants, build_rig_constants
 from fvp_torch.models.convert import (from_jax_backbone_variables,
                                       from_jax_variables)
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
@@ -37,7 +39,58 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-class Predictor:
+def backbone_heatmaps(cfg: FVPConfig, backbone: PoseResNet, packed: dict,
+                      images: torch.Tensor) -> torch.Tensor:
+    """The backbone on normalized float32 images (B, V, H, W, 3) on its
+    device -> heatmaps (B, V, J, h, w); they must come out at
+    cfg.heatmap_size."""
+    x = images.contiguous()
+    B, V = x.shape[:2]
+    hm = backbone(x.reshape(B * V, *x.shape[2:]), packed)    # (BV, h, w, J)
+    w, h = cfg.heatmap_size
+    if tuple(hm.shape[1:3]) != (h, w):
+        raise ValueError(f"backbone heatmaps {tuple(hm.shape[1:3])} "
+                         f"(h, w), config heatmap_size (w, h) {(w, h)}")
+    return hm.reshape(B, V, *hm.shape[1:]).permute(0, 1, 4, 2, 3) \
+        .contiguous()
+
+
+class Engine:
+    """What serving and evaluation share: the model (and a backbone, where
+    given) in eval mode on one device, their kernel weights packed once
+    for `cfg.compute_dtype`, and the rig constants on that device.
+    `Predictor` serves frames of one rig from it;
+    engine/validate.py::run_validation evaluates datasets through it."""
+
+    def __init__(self, cfg: FVPConfig, model: FasterVoxelPose, device=None,
+                 backbone: PoseResNet | None = None):
+        check_compute_dtype(cfg.compute_dtype)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model.eval().to(self.device)
+        self.packed = pack_model(self.model, cfg.compute_dtype)
+        self.backbone = None
+        self.backbone_packed = None
+        if backbone is not None:
+            self.backbone = backbone.eval().to(self.device)
+            self.backbone_packed = pack_backbone(self.backbone,
+                                                 cfg.compute_dtype)
+
+    def rig_constants(self, rig: CameraRig) -> RigConstants:
+        return build_rig_constants(self.cfg, rig).to(self.device)
+
+    @torch.inference_mode()
+    def heatmaps(self, images) -> torch.Tensor:
+        """The backbone alone: images (B, V, H, W, 3) -> heatmaps (B, V, J,
+        h, w) float32 on the engine's device."""
+        if self.backbone is None:
+            raise ValueError("this engine holds no backbone")
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        return backbone_heatmaps(self.cfg, self.backbone,
+                                 self.backbone_packed, x)
+
+
+class Predictor(Engine):
     """`Predictor(cfg, variables_np, rig, device=None,
     backbone_variables_np=None)`: variables_np is the reference package's
     flax {'params', 'batch_stats'} tree of FasterVoxelPose as numpy arrays,
@@ -69,39 +122,14 @@ class Predictor:
 
     def _setup(self, cfg, state_dict, rig, device, backbone_state_dict
                ) -> None:
-        check_compute_dtype(cfg.compute_dtype)
-        self.cfg = cfg
-        self.device = resolve_device(device)
         model = FasterVoxelPose(cfg)
         model.load_state_dict(state_dict)
-        self.model = model.eval().to(self.device)
-        self.rc = build_rig_constants(cfg, rig).to(self.device)
-        self.packed = pack_model(self.model, cfg.compute_dtype)
-        self.backbone = None
+        backbone = None
         if backbone_state_dict is not None:
-            bb = PoseResNet(cfg.num_joints, cfg.resnet_layers)
-            bb.load_state_dict(backbone_state_dict)
-            self.backbone = bb.eval().to(self.device)
-            self.backbone_packed = pack_backbone(self.backbone,
-                                                 cfg.compute_dtype)
-
-    @torch.inference_mode()
-    def heatmaps(self, images) -> torch.Tensor:
-        """The backbone alone: images (B, V, H, W, 3) -> heatmaps (B, V, J,
-        h, w) float32 on the predictor's device."""
-        if self.backbone is None:
-            raise ValueError("this predictor holds no backbone")
-        x = torch.as_tensor(images, dtype=torch.float32,
-                            device=self.device).contiguous()
-        B, V = x.shape[:2]
-        hm = self.backbone(x.reshape(B * V, *x.shape[2:]),
-                           self.backbone_packed)          # (BV, h, w, J)
-        w, h = self.cfg.heatmap_size
-        if tuple(hm.shape[1:3]) != (h, w):
-            raise ValueError(f"backbone heatmaps {tuple(hm.shape[1:3])} "
-                             f"(h, w), config heatmap_size (w, h) {(w, h)}")
-        return hm.reshape(B, V, *hm.shape[1:]).permute(0, 1, 4, 2, 3) \
-            .contiguous()
+            backbone = PoseResNet(cfg.num_joints, cfg.resnet_layers)
+            backbone.load_state_dict(backbone_state_dict)
+        Engine.__init__(self, cfg, model, device, backbone)
+        self.rc = self.rig_constants(rig)
 
     @torch.inference_mode()
     def __call__(self, frame) -> dict[str, torch.Tensor]:

@@ -84,3 +84,14 @@ def get_resize_transform(ori_image_size, image_size) -> np.ndarray:
 def affine_apply(points, t):
     """Apply a 2x3 affine to (..., 2) points (numpy or torch)."""
     return points @ t[:, :2].T + t[:, 2]
+
+
+def rotate_points(points: np.ndarray, center: np.ndarray,
+                  rot_deg: float) -> np.ndarray:
+    """Rotate (N, 2) points around a center (the synthetic scenes'
+    placement)."""
+    rot_rad = rot_deg * np.pi / 180.0
+    m = np.array([[np.cos(rot_rad), -np.sin(rot_rad)],
+                  [np.sin(rot_rad), np.cos(rot_rad)]])
+    center = np.asarray(center, dtype=np.float64).reshape(2, 1)
+    return (m.dot(points.T - center) + center).T

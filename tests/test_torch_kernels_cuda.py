@@ -8,7 +8,9 @@ every residual and output type, a level with fewer tiles than SMs), C2CNet
 at Z = 8, 12 and 96, column counts that are no multiple of 8, many CTAs
 and a weight ring of one slot, held also against its CPU emulation in the
 kernel's own order of sums, WeightNet's pool in an odd number of bands and
-in chunks of joints, and the `fuse_p2p` path.
+in chunks of joints, and the `fuse_p2p` path; and the eval engine's
+shapes (B = 8 frames, P = 80 people at the flagship widths), its device
+splat, and run_validation on the card against the CPU.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -176,11 +178,13 @@ def test_person_layout_kernel(dev, J):
 
 
 @pytest.mark.parametrize("shape", [(2, 80, 80, 15), (1, 40, 24, 17),
-                                   (1, 16, 16, 15), (3, 80, 80, 17)])
+                                   (1, 16, 16, 15), (3, 80, 80, 17),
+                                   (8, 80, 80, 15)])
 def test_centernet_kernel(dev, shape):
     """One launch per call; ragged and small levels ((1, 40, 24, 17): a
     10 x 6 deepest level; (1, 16, 16, 15): stages of fewer tiles than
-    SMs), batches of 2 and 3."""
+    SMs), batches of 2 and 3, and the eval engine's batch of 8 BEV maps
+    (the persistent cooperative grid at 8x the tiles)."""
     J = shape[-1]
     packed = pack_model(_model(J, dev))["center_net"]
     bev = torch.rand(shape, device=dev)
@@ -215,10 +219,11 @@ def test_centernet_stages_one_by_one(dev, shape):
                                    (15, 1, 4096), (17, 1, 4096),
                                    (15, 10, 4096), (17, 10, 4096),
                                    (15, 30, 4096), (17, 30, 4096),
-                                   (17, 2, 1000)])
+                                   (17, 2, 1000), (15, 80, 4096)])
 def test_soft_argmax_kernel(dev, J, P, N):
     """One launch a call (G = 1 .. 8 blocks a map of 512 rows; N = 1000
-    leaves the last block a ragged chunk), two calls
+    leaves the last block a ragged chunk; P = 80, the eval engine's 8
+    frames of 10 people: 1920 blocks and 80 last-block counters), two calls
     bitwise equal (the blocks' partials and the confidences are added in a
     fixed order)."""
     rng = np.random.RandomState(1)
@@ -264,11 +269,11 @@ def test_soft_argmax_peak_in_the_last_chunk(dev, J):
 @pytest.mark.parametrize("shape,rows", [
     ((6, 16, 16, 15), None), ((4, 64, 64, 17), None),
     ((2, 40, 24, 15), 16), ((30, 64, 64, 15), None), ((1, 6, 258, 100), None),
-    ((3, 10, 6, 2), 4)])
+    ((3, 10, 6, 2), 4), ((240, 64, 64, 15), None)])
 def test_weightnet_pool_kernel(dev, shape, rows):
     """(2, 40, 24, 15) in 3 bands (16, 16, 8 rows); (1, 6, 258, 100) in
-    chunks of 50 joints; two calls give the same bits (the mean's fixed
-    order)."""
+    chunks of 50 joints; (240, 64, 64, 15): the eval engine's 3 planes of
+    80 people; two calls give the same bits (the mean's fixed order)."""
     packed = pack_model(_model(shape[-1], dev))["weight_net"]
     planes = torch.as_tensor(np.random.RandomState(0).randn(*shape)
                              .astype(np.float32), device=dev)
@@ -719,3 +724,120 @@ def _trunk_after_layer1(packed, x):
     for layer in packed["trunk"]:
         x = layer(x)
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the eval engine's shapes: a batch of B = 8 frames at the flagship widths
+# (5 views of 15 joints at 240x128, an 80x80x20 space), P = B * K = 80
+# people in 64^3 cubes
+# ---------------------------------------------------------------------------
+
+def _flagship(dev, B=8, seed=0):
+    cfg = FVPConfig(backbone="")
+    rng, rig, rc, hm = _inputs(cfg, dev, B=B, seed=seed)
+    return cfg, rng, rig, rc, hm
+
+
+def test_whole_sample_kernel_at_eval_batch(dev):
+    cfg, _, _, rc, hm = _flagship(dev)
+    got = ksamp.whole_sample(hm, rc, cfg)
+    ref = ksamp.whole_sample_plain(hm, rc, cfg)
+    assert got.shape == (8, 80, 80, 20, 15)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+def test_person_planes_kernel_at_eval_batch(dev):
+    """80 people over 8 frames: live ones across the space, some outside
+    the mask, one dead (empty crop) per frame."""
+    cfg, rng, _, rc, hm = _flagship(dev)
+    B, K = 8, cfg.max_people
+    centers = np.stack([rng.uniform(-3500, 3500, (B, K)),
+                        rng.uniform(-4000, 3000, (B, K)),
+                        rng.uniform(0, 1600, (B, K))], -1)
+    centers[:, -1] = [9000.0, 9000.0, 800.0]             # dead: empty crop
+    bbox = rng.uniform(0.2, 1.0, (B, K, 2))
+    mask = rng.rand(B, K) > 0.3
+    args = [torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in (centers, bbox)]
+    mask_t = torch.as_tensor(mask, device=dev)
+    got, off = ksamp.person_planes(hm, rc, cfg, *args, mask_t)
+    corner, start, end, off_r = ksamp.person_bounds(*args, mask_t, cfg)
+    ref = ksamp.person_planes_plain(hm, rc, cfg, corner, start, end)
+    assert got.shape == (3, B * K, 64, 64, 15)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(off, off_r)
+    live = got.reshape(3, B * K, -1).amax(dim=(0, 2)) > 0
+    assert int(live.sum()) >= 20
+    assert not bool(live[torch.as_tensor(~mask.ravel(), device=dev)].any())
+
+
+def test_render_heatmaps_device_cuda_matches_numpy(dev):
+    """The device splat on the card for the eval phase's batch (8 held-out
+    synthetic scenes, 5 views, augmentation on) against the numpy
+    renderer on the same packed draws."""
+    from fvp_torch.config import load_config
+    from fvp_torch.data.heatmaps import generate_input_heatmap
+    from fvp_torch.data.loader import build_samples, collate
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.ops.heatmap_render import render_heatmaps_device
+
+    cfg = load_config("configs/test/synthetic_convergence_r5.yaml",
+                      synthetic_num_data=8)
+    ds = build_dataset("synthetic", cfg, is_train=False)
+    idx = np.arange(8)
+    rp = collate(build_samples(ds, idx, np.random.RandomState(0)))[
+        "render_params"]
+    got = render_heatmaps_device(cfg, *(
+        torch.as_tensor(rp[k], device=dev)
+        for k in ("mu", "vis", "sigma", "scale", "occ"))).cpu().numpy()
+    for b in idx:
+        views_2d, views_vis = ds._project_gt_views(ds.records[b])
+        for v, (j2d, jv) in enumerate(zip(views_2d, views_vis)):
+            ref = generate_input_heatmap(
+                cfg, j2d, joints_vis=jv, augment=True,
+                draws=(rp["scale"][b, v], rp["occ"][b, v]))
+            np.testing.assert_allclose(got[b, v], ref, rtol=0, atol=1e-5)
+    assert got.max() > 0.5
+
+
+def test_run_validation_cuda_matches_cpu(dev):
+    """run_validation on the card against the CPU on the tiny synthetic
+    config (20 scenes at batch 8, the last batch padded), chip_smoke's
+    seeded weights; the gate in the widest gap of the CPU's detection
+    confidences."""
+    from chip_smoke import random_state_dict
+    from fvp_torch.config import load_config
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.engine.validate import run_validation
+
+    base = load_config("configs/test/tiny_synthetic.yaml",
+                       synthetic_num_data=20)
+    state = random_state_dict(FasterVoxelPose(base), seed=5)
+    ds = build_dataset("synthetic", base, is_train=False)
+
+    def run(cfg, device):
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(state)
+        return run_validation(cfg, model, ds, device=device,
+                              log=lambda s: None)
+
+    conf = np.sort(run(base.replace(min_score=1e9), "cpu")[
+        "fused_poses"][..., 0, 4].ravel())
+    lo, hi = int(0.3 * len(conf)), int(0.8 * len(conf))
+    i = lo + int(np.argmax(np.diff(conf[lo:hi + 1])))
+    cfg = base.replace(min_score=float((conf[i] + conf[i + 1]) / 2))
+    assert conf[i + 1] - conf[i] > 2e-4
+    reset_launches()
+    got = run(cfg, dev)
+    counts = {n: k.launches for n, k in all_kernels().items()}
+    for n in ("whole_sample", "person_planes", "centernet", "soft_argmax",
+              "weightnet_pool"):
+        assert counts[n] == 3, counts                   # one a batch
+    ref = run(cfg, "cpu")
+    a, b = got["fused_poses"], ref["fused_poses"]
+    mask = a[..., 0, 3] >= 0
+    np.testing.assert_array_equal(mask, b[..., 0, 3] >= 0)
+    assert 4 <= mask.sum() <= mask.size - 4
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=5e-2)
+    assert got["metrics"]["total_gt"] == ref["metrics"]["total_gt"] > 0
+    assert got["fps"] > 0
