@@ -70,12 +70,29 @@ non-zero:
    batch's 8 frames run one by one against the batched run (identical
    masks, within 1e-3 mm), two of its frames against the CPU (identical
    masks, within 5e-2 mm), the device splat against the numpy renderer
-   (within 1e-5), and prints a profile of a batch;
-9. prints one JSON line of the kernels, then the result line.
+   (within 1e-5), and prints a profile of a batch, and how far the batch's
+   poses move when the model runs with TF32 on (outside the entry points'
+   float32_math), beside the eval step under the same flags, which must
+   not move;
+9. drives the trainer (engine/train.py) on the card: the same protocol's
+   training scenes at its train batch of 8 through seq_grouped_batches,
+   the model from the port's 'flax' init, 2 warm-up and 10 timed steps
+   with every launch count set to 0 just before; checks that each step
+   launched whole_sample once and person_planes once (with its layout)
+   and no other kernel, that the losses are finite, that the HDN moved on
+   the accumulation window's k-th steps only and the JLN exactly when the
+   joint loss was > 0; prints the median step, peak memory, the losses and
+   a profile of a step by kind beside the card's name and power limit,
+   holds K1 and K2 against their plain versions on the training batch,
+   the first step against the CPU (losses, gradients, BatchNorm
+   statistics), and takes 2 image-source steps at batch 2 through the
+   frozen float32 ResNet-50 (stem, deconv head, K1, K2 a step);
+10. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
 for cuDNN convs and matmuls, so that the card's plain path and the float32
-trunk compute in full float32.
+trunk compute in full float32 (the port's entry points switch it off for
+their own work whatever the global flags say).
 """
 
 from __future__ import annotations
@@ -171,6 +188,45 @@ EVAL_PROFILE_GROUPS = [
 # The device splat against the numpy renderer (as tests/test_device_render
 # holds the reference's).
 RENDER_ATOL = 1e-5
+# The training phase: EVAL_CFG's training protocol at full width, its
+# train batch of 8 from TRAIN_SCENES synthetic scenes (the dataset's
+# 1600 cut to what the steps need) through seq_grouped_batches with the
+# device render and augmentation; TRAIN_WARMUP steps, then TRAIN_STEPS
+# timed ones.
+TRAIN_SCENES = 96
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+# The first step, card against CPU, on the first batch, all 8 scenes at
+# full width (a CPU step at batch 2 took 4.7 s, and its two scenes matched
+# nobody, which left the JLN's gradients 0 on both sides): the four
+# losses relative; each gradient within TRAIN_GRAD_RTOL of its
+# tensor's largest entry plus TRAIN_GRAD_NET_RTOL of its net's largest
+# gradient (a conv bias before a BatchNorm has a gradient of exactly 0 in
+# exact arithmetic, float32 noise on both devices, and gradients that
+# cancel round far from their own scale: tests/test_torch_train_lockstep.py
+# measures up to 3.1e-3 of a tensor's scale for the port's float32 on the
+# CPU against float64); each new BatchNorm statistic against its tensor's
+# largest entry.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_GRAD_NET_RTOL = 3e-3
+TRAIN_STATS_RTOL = 1e-4
+# the train step's device time by kind
+TRAIN_PROFILE_GROUPS = [
+    ("K1", ("whole_sample_kernel",)),
+    ("K2", ("person_layout_kernel", "person_planes_kernel")),
+    ("Adam", ("multi_tensor_apply", "adam", "Adam")),
+    ("cuDNN backward (dgrad, wgrad)", ("dgrad", "wgrad", "bprop")),
+    ("cuDNN forward and GEMM/FFT convs", ("cudnn", "xmma", "implicit_gemm",
+                                         "convolve", "gemm", "fft",
+                                         "Nhwc", "Nchw", "cutlass",
+                                         "sm90")),
+    ("copies", ("Memcpy", "Memset")),
+    ("torch ops", ("at::native",)),
+]
+# the image-source train steps (a smaller depth than the heatmap ones)
+TRAIN_IMAGE_BATCH = 2
+TRAIN_IMAGE_STEPS = 2
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -619,10 +675,14 @@ def main() -> int:
     # 8. the eval engine: run_validation at the reference's eval batch
     eval_launches, eval_res = eval_phase(K, state, smi, rows)
 
+    # 9. training: the trainer's steps at the train batch of 8
+    train_launches, train_res = train_phase(K, smi)
+
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
-             "bf16_image_path": bf16_launches, "eval_path": eval_launches}
+             "bf16_image_path": bf16_launches, "eval_path": eval_launches,
+             "train_path": train_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage"):
@@ -633,6 +693,7 @@ def main() -> int:
         row["launches_from"] = main
         for path, counts in paths.items():
             row[f"launches_{path}"] = counts[name]
+        row["train_step_ms"] = train_res["step_ms_median"]
         kernels.append(row)
     log(json.dumps({"kernels": kernels,
                     "frame_ms_median": statistics.median(steady),
@@ -645,6 +706,12 @@ def main() -> int:
                     "eval_batch_ms": eval_res["batch_ms"],
                     "eval_full_batch_ms": eval_res["full_batch_ms"],
                     "eval_parts_ms": eval_res["parts_ms"],
+                    "train_step_ms": train_res["step_ms"],
+                    "train_step_ms_median": train_res["step_ms_median"],
+                    "train_peak_memory_gb": train_res["peak_gb"],
+                    "train_losses": train_res["losses"],
+                    "train_image_step_ms": train_res["image_step_ms"],
+                    "tf32_pose_shift_mm": eval_res["tf32_shift_mm"],
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1601,6 +1668,7 @@ def eval_phase(K, state, smi, rows):
     if not torch.equal(batched, ran):
         raise AssertionError("batch 0 differs from run_validation's: "
                              f"{float((batched - ran).abs().max()):.3e}")
+    res["tf32_shift_mm"] = tf32_shift(e, step, x0, rc, hm0, batched, smi)
     single = torch.cat([step({k: v[b:b + 1] for k, v in x0.items()}, rc)
                         .cpu() for b in range(len(idx0))])
     masks = (batched[..., 0, 3] >= 0, single[..., 0, 3] >= 0)
@@ -1674,6 +1742,40 @@ def eval_phase(K, state, smi, rows):
         f"{len(idx0) * 1e3 / med:.2f} frames/s at B = {len(idx0)}")
     res["full_batch_ms"] = full
     return counts, res
+
+
+def tf32_shift(e, step, x, rc, hm, ref, smi) -> float:
+    """How far TF32 moves the eval batch's poses: the model called directly
+    with PyTorch's default flags (TF32 on for cuDNN convs; matmuls too), as
+    the entry points computed before they entered float32_math, against
+    the eval step's float32 poses `ref`; and the eval step itself under
+    those flags, which must give `ref` again. Returns the distance in
+    mm (people kept in both)."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            raw = e.model(hm, rc, e.packed)["fused_poses"].cpu()
+        fixed = step(x, rc).cpu()
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    keep = (raw[..., 0, 3] >= 0) & (ref[..., 0, 3] >= 0)
+    shift = float((raw - ref)[keep][..., :3].abs().max()) if keep.any() \
+        else 0.0
+    same = bool(torch.equal(raw[..., 0, 3] >= 0, ref[..., 0, 3] >= 0))
+    err = float((fixed - ref).abs().max())
+    log(f"TF32 on {smi}: the eval batch's fused_poses with TF32 on (the "
+        f"model called outside float32_math) move {shift:.4e} mm from the "
+        f"float32 ones ({int(keep.sum())} people kept in both, masks "
+        f"identical {same}); the eval step under the same flags: "
+        f"{err:.3e} mm from float32 (identical {err == 0.0})")
+    if not err <= EVAL_BATCH_TOL_MM:
+        raise AssertionError("the eval step computed TF32 under global "
+                             "TF32 flags")
+    return shift
 
 
 def batch_kernels(cfg, e, rc, hm, rows) -> None:
@@ -1750,6 +1852,308 @@ def batch_kernels(cfg, e, rc, hm, rows) -> None:
             f"{ms:8.4f} ms at B = {B}, {rows[name]['ms']:8.4f} ms at B = 1 "
             f"({ms / rows[name]['ms']:.2f}x)")
         held(name, err, tol, f" at B = {B}")
+
+
+# ---------------------------------------------------------------------------
+# 9. training
+# ---------------------------------------------------------------------------
+
+TRAIN_PATH = {"whole_sample": 1, "person_planes": 1}
+TRAIN_IMAGE_PATH = {"stem": 1, "deconv_stage": 3, "whole_sample": 1,
+                    "person_planes": 1}
+
+
+def step_launches(K, before, per_step, what) -> dict:
+    """The launches since `before` are exactly `per_step` (every other
+    kernel 0); returns the counts now."""
+    now = launch_counts(K)
+    delta = {k: now[k] - before[k] for k in now}
+    want = {k: per_step.get(k, 0) for k in now}
+    if delta != want:
+        raise AssertionError(f"{what}: launches {delta}, expected {want}")
+    return now
+
+
+def _params(module) -> list:
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def _changed(before, module) -> bool:
+    import torch
+
+    return any(not torch.equal(a, p) for a, p in zip(before,
+                                                     module.parameters()))
+
+
+def train_phase(K, smi):
+    """Phase 9: the trainer on the card. EVAL_CFG's training protocol at
+    full width and its train batch of 8 (seq_grouped_batches, device
+    render with augmentation), the model from the port's 'flax' init of a
+    seeded generator; TRAIN_WARMUP + TRAIN_STEPS steps, each timed on the
+    host clock between two synchronisations, each launching K1 once and
+    K2 once (with its layout) and no other kernel; the HDN moving on the
+    accumulation window's k-th steps only, the JLN exactly when the joint
+    loss is > 0; peak memory, a profile of a step, K1 and K2 against their
+    plain versions on a training batch's tensors; the first step card
+    against CPU; then image-source steps through the frozen ResNet-50.
+    Returns (launches over the timed run, results)."""
+    import torch
+    from fvp_torch.config import load_config
+    from fvp_torch.data.loader import seq_grouped_batches
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.engine.init import flax_init
+    from fvp_torch.engine.train import Trainer, step_inputs
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.ops.heatmap_render import render_heatmaps_device
+    from fvp_torch.ops.kernels import sampler as ksamp
+
+    dev = torch.device("cuda")
+    cfg = load_config(EVAL_CFG, synthetic_num_data=TRAIN_SCENES)
+    ds = build_dataset(cfg.train_dataset, cfg, is_train=True)
+    batches = list(seq_grouped_batches(ds, cfg.batch_size, cfg.seed, 0))
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    if len(batches) < n:
+        raise AssertionError(f"{len(batches)} batches for {n} steps")
+    rc = build_rig_constants(cfg, ds.rigs["synthetic"]).to(dev)
+    model = FasterVoxelPose(cfg)
+    flax_init(model, torch.Generator().manual_seed(cfg.seed))
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(cfg, model, dev)
+    hdn, jln = model.pose_net, model.joint_net
+    k = cfg.accumulation_steps
+    log(f"train phase: {EVAL_CFG}, {len(ds)} training scenes of up to "
+        f"{cfg.synthetic_max_people} people, batch {cfg.batch_size}, "
+        f"{cfg.num_views} views of {cfg.heatmap_size} heatmaps rendered on "
+        f"the card (augmentation {ds.data_augmentation}), "
+        f"{cfg.voxels_per_axis} space, K = {cfg.max_people} in "
+        f"{cfg.ind_voxels_per_axis} cubes, {cfg.compute_dtype}, lr "
+        f"{cfg.lr}, HDN window k = {k}, init 'flax' (generator seed "
+        f"{cfg.seed})")
+
+    inputs = [step_inputs(b, dev) for _, b in batches[:n]]
+    K.reset_launches()
+    counts = launch_counts(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, moved = [], [], []
+    for i, (x, targets, meta) in enumerate(inputs):
+        h0, j0 = _params(hdn), _params(jln)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ls = trainer.train_step(x, rc, targets, meta)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = step_launches(K, counts, TRAIN_PATH, f"train step {i}")
+        ls = {key: float(v) for key, v in ls.items()}
+        losses.append(ls)
+        moved.append((_changed(h0, hdn), _changed(j0, jln)))
+        if not all(np.isfinite(v) for v in ls.values()):
+            raise AssertionError(f"train step {i}: losses {ls}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    log(f"train on {smi}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+        f"median {med:.3f} ms ({min(timed):.3f} .. {max(timed):.3f}), "
+        f"{cfg.batch_size * 1e3 / med:.2f} scenes/s; peak memory "
+        f"{peak:.3f} GB (max_memory_allocated)")
+    log(f"train step ms: {', '.join(f'{t:.2f}' for t in step_ms)}")
+    for i, (ls, (mh, mj)) in enumerate(zip(losses, moved)):
+        log(f"  step {i:2d}: total {ls['total']:.5f} 2d "
+            f"{ls['2d_heatmaps']:.6f} 1d {ls['1d_heatmaps']:.5f} bbox "
+            f"{ls['bbox']:.5f} joint {ls['joint']:.3f}; HDN moved {mh}, "
+            f"JLN moved {mj}")
+        if mh != ((i + 1) % k == 0):
+            raise AssertionError(f"train step {i}: HDN moved {mh}, window "
+                                 f"of {k}")
+        if mj != (ls["joint"] > 0):
+            raise AssertionError(f"train step {i}: JLN moved {mj}, joint "
+                                 f"loss {ls['joint']}")
+    if not any(ls["joint"] > 0 for ls in losses):
+        raise AssertionError("no training step matched a person: the JLN "
+                             "never trained")
+    log(f"train path: {n} steps, launches {counts}; each step "
+        f"{TRAIN_PATH} (person_planes with its layout kernel), every "
+        "other kernel 0")
+
+    # where a step's time goes, and the splat alone
+    profile_frames(lambda a: trainer.train_step(a[0], rc, *a[1:]),
+                   [inputs[0]], n=2, unit="step",
+                   groups=TRAIN_PROFILE_GROUPS)
+    x0 = inputs[0][0]
+    with torch.inference_mode():
+        splat_ms = time_ms(lambda: render_heatmaps_device(
+            cfg, *(x0[key] for key in ("mu", "vis", "sigma", "scale",
+                                       "occ"))), reps=10, spin=LONG_SPIN)
+    log(f"train step parts, alone: the splat {splat_ms:.3f} ms")
+
+    # K1 and K2 on the training batch's tensors against their plain
+    # versions (phase 3's tolerances), the proposals matched in train mode
+    with torch.no_grad():
+        hm = trainer.heatmaps(x0)
+        props = model.detect(hm, rc, None, True, inputs[0][2])["proposals"]
+        mask = props[..., 3] >= 0
+        vol = ksamp.whole_sample(hm, rc, cfg)
+        err_ws = float((vol - ksamp.whole_sample_plain(hm, rc, cfg))
+                       .abs().max())
+        planes, _ = ksamp.person_planes(hm, rc, cfg, props[..., :3],
+                                        props[..., 5:7], mask)
+        corner, start, end, _ = ksamp.person_bounds(
+            props[..., :3], props[..., 5:7], mask, cfg)
+        err_pp = float((planes - ksamp.person_planes_plain(
+            hm, rc, cfg, corner, start, end)).abs().max())
+    log(f"train kernels on batch 0's tensors (B = {hm.shape[0]}, P = "
+        f"{props.shape[0] * props.shape[1]}, {int(mask.sum())} matched): "
+        f"whole_sample max_abs_err {err_ws:.3e} (tol 1e-05), "
+        f"person_planes {err_pp:.3e} (tol 1e-04)")
+    held("whole_sample", err_ws, 1e-5, " on the training batch")
+    held("person_planes", err_pp, 1e-4, " on the training batch")
+
+    train_card_vs_cpu(cfg, init_state, batches[0][1], ds)
+    image_ms = train_image_steps(K, cfg, init_state, batches[0][1],
+                                 ds.rigs["synthetic"], smi)
+    return counts, {"step_ms": step_ms, "step_ms_median": med,
+                    "peak_gb": peak, "losses": losses,
+                    "image_step_ms": image_ms}
+
+
+def pre_bn_biases(model) -> set:
+    """Names of the conv biases that feed a BatchNorm: in train mode the
+    BatchNorm removes any constant, so their exact gradient is 0 and what
+    either device computes for them is float32 summation noise (over 15M
+    terms for WeightNet's conv)."""
+    import torch
+
+    names = set()
+    for prefix, m in model.named_modules():
+        if isinstance(m, torch.nn.Sequential):
+            kids = list(m.named_children())
+            for (a, conv), (_, bn) in zip(kids, kids[1:]):
+                if isinstance(conv, (torch.nn.Conv1d, torch.nn.Conv2d,
+                                     torch.nn.ConvTranspose1d,
+                                     torch.nn.ConvTranspose2d)) \
+                        and isinstance(bn, torch.nn.modules.batchnorm
+                                       ._BatchNorm):
+                    names.add(f"{prefix}.{a}.bias")
+    return names
+
+
+def train_card_vs_cpu(cfg, init_state, batch, ds) -> None:
+    """The first step from the same weights on the card and on the CPU, on
+    `batch` at full width: the losses (the joint loss > 0: people
+    matched), every gradient but those of `pre_bn_biases` and every new
+    BatchNorm statistic within the stated tolerances (worst of each
+    printed)."""
+    import torch
+    from fvp_torch.engine.train import Trainer, step_inputs
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(init_state)
+        tr = Trainer(cfg, model, device)
+        rc = build_rig_constants(cfg, ds.rigs["synthetic"]).to(device)
+        x, targets, meta = step_inputs(batch, device)
+        t = time.perf_counter()
+        ls = tr.train_step(x, rc, targets, meta)
+        ls = {key: float(v) for key, v in ls.items()}
+        runs[device] = (ls, {name: p.grad.detach().cpu() for name, p in
+                             model.named_parameters()},
+                        {key: v.detach().cpu() for key, v in
+                         model.state_dict().items() if "running" in key},
+                        time.perf_counter() - t)
+    (lg, gg, sg, tg), (lc, gc, sc, tc) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(lg[key] - lc[key]) / max(abs(lc[key]), 1e-12)
+                   for key in lc)
+    net_scale = {}
+    for name, g in gc.items():
+        net = ".".join(name.split(".")[:2])
+        net_scale[net] = max(net_scale.get(net, 0.0), float(g.abs().max()))
+    zero = pre_bn_biases(FasterVoxelPose(cfg))
+    grad_worst, grad_name, noise = 0.0, "", 0.0
+    for name, g in gc.items():
+        net = ".".join(name.split(".")[:2])
+        err = float((gg[name] - g).abs().max())
+        if name in zero:
+            noise = max(noise, err / net_scale[net])
+            continue
+        tol = TRAIN_GRAD_RTOL * float(g.abs().max()) \
+            + TRAIN_GRAD_NET_RTOL * net_scale[net]
+        r = err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
+        if r > grad_worst:
+            grad_worst, grad_name = r, name
+    stats_worst = max(float((sg[key] - v).abs().max())
+                      / max(float(v.abs().max()), 1e-12)
+                      for key, v in sc.items())
+    log(f"train first step card vs CPU (batch 0, all {cfg.batch_size} "
+        f"scenes at full width; the CPU step took {tc:.1f} s): joint loss "
+        f"{lc['joint']:.3f}; losses within {loss_err:.3e} relative (tol "
+        f"{TRAIN_LOSS_RTOL:.0e}); gradients within {grad_worst:.3f} of "
+        f"their tolerance ({TRAIN_GRAD_RTOL:.0e} x the tensor's max-abs + "
+        f"{TRAIN_GRAD_NET_RTOL:.0e} x its net's; worst {grad_name}); the "
+        f"{len(zero)} conv biases before a BatchNorm (exact gradient 0) "
+        f"apart by up to {noise:.3e} of their net's largest gradient "
+        f"(float32 noise, not held); new BatchNorm statistics within "
+        f"{stats_worst:.3e} of their tensors' max-abs (tol "
+        f"{TRAIN_STATS_RTOL:.0e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_worst <= 1.0
+            and stats_worst <= TRAIN_STATS_RTOL and lc["joint"] > 0):
+        raise AssertionError("the first training step differs between the "
+                             "card and the CPU")
+
+
+def train_image_steps(K, cfg, init_state, batch, rig, smi) -> list:
+    """TRAIN_IMAGE_STEPS image-source steps at batch TRAIN_IMAGE_BATCH
+    through the frozen float32 ResNet-50 (seeded) at 960x512: each launches
+    the stem once, the deconv head's three stages, K1 and K2, and nothing
+    else; the losses finite; the backbone unchanged. Returns the steps'
+    host-clock ms."""
+    import torch
+    from fvp_torch.engine.train import Trainer
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.models.resnet import PoseResNet, seeded_state_dict
+
+    dev = torch.device("cuda")
+    b = TRAIN_IMAGE_BATCH
+    cfg_img = cfg.replace(train_heatmap_src="image")
+    backbone = PoseResNet(cfg.num_joints, cfg.resnet_layers)
+    backbone.load_state_dict(seeded_state_dict(backbone, seed=0))
+    model = FasterVoxelPose(cfg_img)
+    model.load_state_dict(init_state)
+    tr = Trainer(cfg_img, model, dev, backbone=backbone)
+    before = [p.detach().clone() for p in backbone.parameters()]
+    images = torch.as_tensor(seeded_images(cfg_img, seed=1, frames=b),
+                             device=dev)
+    targets, meta = ({key: torch.as_tensor(v[:b], device=dev)
+                      for key, v in batch[part].items()}
+                     for part in ("targets", "meta"))
+    rc = build_rig_constants(cfg_img, rig).to(dev)
+    K.reset_launches()
+    counts = launch_counts(K)
+    ms = []
+    for i in range(TRAIN_IMAGE_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ls = tr.train_step(images, rc, targets, meta)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        counts = step_launches(K, counts, TRAIN_IMAGE_PATH,
+                               f"image train step {i}")
+        ls = {key: float(v) for key, v in ls.items()}
+        if not all(np.isfinite(v) for v in ls.values()):
+            raise AssertionError(f"image train step {i}: losses {ls}")
+    if any(not torch.equal(a, p) for a, p in zip(before,
+                                                  backbone.parameters())):
+        raise AssertionError("the frozen backbone moved")
+    log(f"train image source on {smi}: {TRAIN_IMAGE_STEPS} steps at batch "
+        f"{b} through the frozen float32 ResNet-50 at "
+        f"{cfg_img.image_size}: {', '.join(f'{t:.2f}' for t in ms)} ms "
+        f"(the first with its warm-up); launches {counts}; losses finite, "
+        "backbone unchanged")
+    return ms
 
 
 def numpy_render(ds, rec: int, x, b: int, render) -> np.ndarray:

@@ -3,7 +3,9 @@
 A copy of the reference package's `data/loader.py`: a thread-pool
 prefetcher feeding fixed-shape numpy batches, in place of the original
 implementation's DataLoader worker pool (run/train.py:68-73). The caller
-copies each batch to its device.
+copies each batch to its device. `seq_grouped_batches` is the reference
+package's training order (its run/train.py:55-73): every batch drawn from
+one sequence, so each train step sees one camera rig.
 """
 
 from __future__ import annotations
@@ -84,6 +86,28 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = False,
         if drop_last and len(idx) < batch_size:
             return
         yield collate(build_samples(dataset, idx, rng, num_threads))
+
+
+def seq_grouped_batches(dataset, batch_size: int, seed: int, epoch: int):
+    """Yield (seq, batch) with every batch drawn from a single sequence:
+    each sequence's records shuffled by the epoch's RNG and cut into full
+    batches (the remainder dropped: fixed shapes), the chunks in a shuffled
+    order, and each batch's samples built from the same RNG."""
+    rng = np.random.RandomState(seed + epoch)
+    by_seq: dict[str, list[int]] = {}
+    for i, rec in enumerate(dataset.records):
+        by_seq.setdefault(rec["seq"], []).append(i)
+    chunks = []
+    for seq, idxs in by_seq.items():
+        idxs = np.asarray(idxs)
+        rng.shuffle(idxs)
+        for s in range(0, len(idxs), batch_size):
+            chunk = idxs[s:s + batch_size]
+            if len(chunk) == batch_size:
+                chunks.append((seq, chunk))
+    for ci in rng.permutation(len(chunks)):
+        seq, idxs = chunks[ci]
+        yield seq, collate(build_samples(dataset, idxs, rng))
 
 
 def prefetch(it: Iterator[dict], depth: int = 2) -> Iterator[dict]:

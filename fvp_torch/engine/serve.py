@@ -10,10 +10,18 @@ it raises rather than fall back to the host. `cfg.compute_dtype` is
 'float32' or 'bfloat16' (the reference's serving configuration: the
 backbone's trunk and the cuDNN task nets in bf16, on the copies that
 engine/packing.py::bf16_copy makes at load time); any other raises.
+
+float32 means float32 on the card too: the entry points (Predictor,
+Engine.heatmaps, the eval step of engine/validate.py, the trainer of
+engine/train.py) compute inside `float32_math`, which turns TF32 off for
+cuDNN convs and matmuls whatever the caller's flags say (PyTorch lets
+cuDNN convs use TF32 by default) and restores the flags afterwards. The
+bf16 kernels and bf16 copies are not affected.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Mapping
 
 import torch
@@ -27,6 +35,19 @@ from fvp_torch.models.convert import (from_jax_backbone_variables,
                                       from_jax_variables)
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
 from fvp_torch.models.resnet import PoseResNet
+
+
+@contextlib.contextmanager
+def float32_math():
+    """TF32 off for cuDNN convs and for matmuls inside; the caller's flags
+    restored on the way out. Also a decorator."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,6 +101,7 @@ class Engine:
         return build_rig_constants(self.cfg, rig).to(self.device)
 
     @torch.inference_mode()
+    @float32_math()
     def heatmaps(self, images) -> torch.Tensor:
         """The backbone alone: images (B, V, H, W, 3) -> heatmaps (B, V, J,
         h, w) float32 on the engine's device."""
@@ -132,6 +154,7 @@ class Predictor(Engine):
         self.rc = self.rig_constants(rig)
 
     @torch.inference_mode()
+    @float32_math()
     def __call__(self, frame) -> dict[str, torch.Tensor]:
         if self.backbone is not None:
             hm = self.heatmaps(frame)

@@ -12,7 +12,8 @@ for the evaluator.
 
 It runs through the serving setup (engine/serve.py::Engine): the model
 packed once for `cfg.compute_dtype`, on `cuda` unless the caller passes a
-device, raising without a card.
+device, raising without a card, and its eval step computes float32
+without TF32 (engine/serve.py::float32_math).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from fvp_torch.config import FVPConfig
 from fvp_torch.data.loader import build_samples, collate, prefetch
-from fvp_torch.engine.serve import Engine, backbone_heatmaps
+from fvp_torch.engine.serve import Engine, backbone_heatmaps, float32_math
 from fvp_torch.geometry.grids import build_rig_constants
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
 from fvp_torch.models.resnet import PoseResNet
@@ -51,6 +52,7 @@ def make_eval_step(cfg: FVPConfig, model: FasterVoxelPose, packed: dict,
         backbone = None
 
     @torch.inference_mode()
+    @float32_math()
     def eval_step(batch_input, rc):
         if backbone is not None:
             heatmaps = backbone_heatmaps(cfg, backbone, backbone_packed,

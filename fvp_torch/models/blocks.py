@@ -5,8 +5,13 @@ Basic (conv + BN + ReLU), Res (two 3x convs + projection skip), Upsample
 encoder-decoder with residual skips. Submodule names follow the reference
 model's state-dict keys (`block.{0,1}`, `res_branch.{0,1,3,4}`,
 `skip_con.{0,1}`, `skip_res1`, ...), so a port `state_dict()` converts to
-the reference package's flax variables with its own converter. Eval-mode
-BatchNorm only in this slice.
+the reference package's flax variables with its own converter.
+
+BatchNorm follows the module's mode: running statistics in eval mode; in
+train mode the reference package's two conventions (fvp_tpu/models/
+blocks.py): flax's `nn.BatchNorm` without a mask, and `MaskedBatchNorm`'s
+per-group masked statistics with a (G, M) mask, which every block takes
+and hands to its BatchNorms.
 """
 
 from __future__ import annotations
@@ -18,13 +23,83 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
+                     x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm as flax's `nn.BatchNorm` computes it: batch
+    statistics (biased variance) normalise; the running statistics move by
+    the momentum towards the batch mean and the *biased* batch variance
+    (torch's own BatchNorm would take the unbiased one)."""
+    y = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                     eps=bn.eps)
+    with torch.no_grad():
+        dims = [0] + list(range(2, x.dim()))
+        var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+        r = 1.0 - bn.momentum
+        bn.running_mean.mul_(r).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(r).add_(var, alpha=bn.momentum)
+    return y
+
+
+def masked_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """The reference package's MaskedBatchNorm (fvp_tpu/models/blocks.py):
+    x (G*M, C, ...) group-major, mask (G, M). Each group is normalised
+    with the statistics of its members in the mask (biased variance);
+    members outside it are zeroed. The running statistics take the
+    closed form of torch's sequential update, once per group with a
+    member, in group order, with the unbiased variance."""
+    G, M = mask.shape
+    C = x.shape[1]
+    xg = x.reshape(G, M, C, -1)
+    S = xg.shape[-1]
+    m = mask.to(x.dtype).reshape(G, M, 1, 1)
+    cnt = m.sum(dim=(1, 2, 3)) * S                           # (G,)
+    safe = cnt.clamp(min=1.0)[:, None]
+    mean = (xg * m).sum(dim=(1, 3)) / safe                   # (G, C)
+    d = xg - mean[:, None, :, None]
+    var = (d * d * m).sum(dim=(1, 3)) / safe
+    a = torch.rsqrt(var + bn.eps) * bn.weight                # (G, C)
+    b = bn.bias - mean * a
+    y = (xg * a[:, None, :, None] + b[:, None, :, None]) * m
+    with torch.no_grad():
+        valid = (cnt > 0).to(x.dtype)
+        r = 1.0 - bn.momentum
+        after = valid.flip(0).cumsum(0).flip(0) - valid      # valid after g
+        w = (valid * (1.0 - r) * r ** after)[:, None]
+        rpow = r ** valid.sum()
+        unbiased = var * (cnt / (cnt - 1.0).clamp(min=1.0))[:, None]
+        bn.running_mean.mul_(rpow).add_((w * mean).sum(0))
+        bn.running_var.mul_(rpow).add_((w * unbiased).sum(0))
+    return y.reshape(x.shape)
+
+
+class _TrainBN:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if mask is not None:
+            return masked_batch_norm(self, x, mask)
+        return batch_norm_train(self, x)
+
+
+class BatchNorm2d(_TrainBN, nn.BatchNorm2d):
+    """nn.BatchNorm2d with the reference package's train-mode conventions
+    (`batch_norm_train`, `masked_batch_norm`)."""
+
+
+class BatchNorm1d(_TrainBN, nn.BatchNorm1d):
+    """nn.BatchNorm1d with the reference package's train-mode conventions
+    (`batch_norm_train`, `masked_batch_norm`)."""
+
+
 def _conv(dims: int, cin: int, cout: int, k: int) -> nn.Module:
     cls = nn.Conv2d if dims == 2 else nn.Conv1d
     return cls(cin, cout, k, padding=k // 2)
 
 
 def _bn(dims: int, c: int) -> nn.Module:
-    return nn.BatchNorm2d(c) if dims == 2 else nn.BatchNorm1d(c)
+    return BatchNorm2d(c) if dims == 2 else BatchNorm1d(c)
 
 
 def max_pool(x: torch.Tensor, dims: int, window: int = 2) -> torch.Tensor:
@@ -41,8 +116,9 @@ class BasicBlock(nn.Module):
         self.block = nn.Sequential(_conv(dims, cin, cout, kernel),
                                    _bn(dims, cout), nn.ReLU(inplace=True))
 
-    def forward(self, x):
-        return self.block(x)
+    def forward(self, x, mask=None):
+        conv, bn, relu = self.block
+        return relu(bn(conv(x), mask))
 
 
 class ResBlock(nn.Module):
@@ -59,8 +135,12 @@ class ResBlock(nn.Module):
             self.skip_con = nn.Sequential(_conv(dims, cin, cout, 1),
                                           _bn(dims, cout))
 
-    def forward(self, x):
-        return F.relu(self.res_branch(x) + self.skip_con(x))
+    def forward(self, x, mask=None):
+        c0, bn0, relu, c1, bn1 = self.res_branch
+        r = bn1(c1(relu(bn0(c0(x), mask))), mask)
+        if len(self.skip_con):
+            x = self.skip_con[1](self.skip_con[0](x), mask)
+        return F.relu(r + x)
 
 
 class UpsampleBlock(nn.Module):
@@ -72,8 +152,9 @@ class UpsampleBlock(nn.Module):
         self.block = nn.Sequential(cls(cin, cout, 2, stride=2),
                                    _bn(dims, cout), nn.ReLU(inplace=True))
 
-    def forward(self, x):
-        return self.block(x)
+    def forward(self, x, mask=None):
+        conv, bn, relu = self.block
+        return relu(bn(conv(x), mask))
 
 
 class EncoderDecoder(nn.Module):
@@ -94,13 +175,13 @@ class EncoderDecoder(nn.Module):
         self.decoder_res1 = ResBlock(c1, c1, dims)
         self.decoder_upsample1 = UpsampleBlock(c1, c0, dims)
 
-    def forward(self, x):
-        skip1 = self.skip_res1(x)
-        x = self.encoder_res1(max_pool(x, self.dims))
-        skip2 = self.skip_res2(x)
-        x = self.encoder_res2(max_pool(x, self.dims))
-        x = self.mid_res(x)
-        x = self.decoder_res2(x)
-        x = self.decoder_upsample2(x) + skip2
-        x = self.decoder_res1(x)
-        return self.decoder_upsample1(x) + skip1
+    def forward(self, x, mask=None):
+        skip1 = self.skip_res1(x, mask)
+        x = self.encoder_res1(max_pool(x, self.dims), mask)
+        skip2 = self.skip_res2(x, mask)
+        x = self.encoder_res2(max_pool(x, self.dims), mask)
+        x = self.mid_res(x, mask)
+        x = self.decoder_res2(x, mask)
+        x = self.decoder_upsample2(x, mask) + skip2
+        x = self.decoder_res1(x, mask)
+        return self.decoder_upsample1(x, mask) + skip1

@@ -20,6 +20,11 @@ instead (`ops/kernels/c2cnet.py`, one launch, and
 `ops/kernels/hourglass.py`, layer by layer), on weights packed from these
 modules.
 
+In train mode their BatchNorms take batch statistics (models/blocks.py):
+CenterNet's and C2CNet's over the whole batch, P2PNet's and WeightNet's
+per scene over the matched people of a (B, 3K) mask, as the reference's
+train branch runs them (fvp_tpu/models/faster_voxelpose.py:295-327).
+
 Under `compute_dtype='bfloat16'` C2CNet and P2PNet run as bf16 copies
 (engine/packing.py::bf16_copy) up to their 1x1 output convs, which take a
 float32 input and float32 weights, as the reference's heads do
@@ -31,7 +36,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fvp_torch.models.blocks import BasicBlock, EncoderDecoder, ResBlock
+from fvp_torch.models.blocks import (BasicBlock, BatchNorm2d, EncoderDecoder,
+                                     ResBlock)
 
 
 class CenterNet(nn.Module):
@@ -76,8 +82,12 @@ class P2PNet(nn.Module):
         self.encoder_decoder = EncoderDecoder(dims=2)
         self.output_layer = nn.Conv2d(32, num_joints, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.encoder_decoder(self.front_layers(x.permute(0, 3, 1, 2)))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """`mask` (train mode): (G, M) over the planes, group-major."""
+        basic, res = self.front_layers
+        x = res(basic(x.permute(0, 3, 1, 2), mask), mask)
+        x = self.encoder_decoder(x, mask)
         return self.output_layer(x.float()).permute(0, 2, 3, 1)
 
 
@@ -90,23 +100,29 @@ class WeightNet(nn.Module):
         super().__init__()
         self.heatmap_feature_net = nn.Sequential(
             nn.Conv2d(1, feat_channels, 3, padding=1),
-            nn.BatchNorm2d(feat_channels), nn.MaxPool2d(2),
+            BatchNorm2d(feat_channels), nn.MaxPool2d(2),
             nn.ReLU(inplace=True))
         self.output = nn.Sequential(
             nn.Linear(feat_channels, hidden_channels), nn.ReLU(inplace=True),
             nn.Linear(hidden_channels, 1), nn.Sigmoid())
 
-    def pool(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, A, B, J) -> (N, J, C): the conv front end and the spatial
-        mean, as cuDNN convs."""
+    def pool(self, x: torch.Tensor, mask: torch.Tensor | None = None
+             ) -> torch.Tensor:
+        """(N, A, B, J) -> (N, J, C): the conv front end (conv -> BN -> 2x2
+        max -> ReLU) and the spatial mean, as cuDNN convs. `mask` (train
+        mode): (G, M) over the N planes, group-major; each plane's J maps
+        take its entry."""
         n, a, b, j = x.shape
         x = x.permute(0, 3, 1, 2).reshape(n * j, 1, a, b)
-        x = self.heatmap_feature_net(x).mean(dim=(2, 3))
+        conv, bn, pool, relu = self.heatmap_feature_net
+        jmask = None if mask is None else mask.repeat_interleave(j, dim=1)
+        x = relu(pool(bn(conv(x), jmask))).mean(dim=(2, 3))
         return x.reshape(n, j, -1)
 
     def head(self, pooled: torch.Tensor) -> torch.Tensor:
         """(N, J, C) pooled features -> (N, J, 1) weights."""
         return self.output(pooled)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.pool(x))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        return self.head(self.pool(x, mask))

@@ -1,6 +1,6 @@
-"""The HDN + JLN model, eval mode: heatmaps -> fused 3D poses.
+"""The HDN + JLN model: heatmaps -> fused 3D poses, in eval and train mode.
 
-Data flow (the reference package's FasterVoxelPose, non-train branch):
+Data flow (the reference package's FasterVoxelPose):
   heatmaps (B, V, J, H, W)
     -> whole-space volumes (B, X, Y, Z, J)        [K1 whole_sample]
     -> BEV max over z -> CenterNet -> center heatmap + bbox sizes [K3]
@@ -24,6 +24,14 @@ and WeightNet's conv front end run on their float32 kernels under either
 dtype (the reference computes them in bf16 under 'bfloat16'); the
 soft-argmax reads P2PNet's float32 output.
 
+Train mode (`train=True`, the module in train mode, float32) is the
+reference's train branch: the samplers K1 and K2 as in eval (their inputs
+carry no gradient), the four nets as their modules with batch-statistic
+BatchNorm (P2PNet and WeightNet per scene over the matched people, on the
+planes reordered scene-major), the differentiable soft-argmax of
+ops/softargmax.py, and the proposals matched to the ground truth
+(`match_proposals_to_gt`). `compute_losses` gives the four losses.
+
 Submodules carry the reference model's key names (`pose_net.center_net`,
 `pose_net.c2c_net`, `joint_net.conv_net`, `joint_net.weight_net`). The
 kernel wrappers pick the kernel for CUDA tensors and the plain version for
@@ -38,6 +46,7 @@ from torch import nn
 from fvp_torch.config import FVPConfig
 from fvp_torch.geometry.grids import RigConstants
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
+from fvp_torch.ops import softargmax as plain_softargmax
 from fvp_torch.ops.kernels.c2cnet import c2cnet
 from fvp_torch.ops.kernels.centernet import centernet_forward
 from fvp_torch.ops.kernels.hourglass import hourglass_supported, p2pnet
@@ -56,8 +65,32 @@ def _cudnn_net(packed: dict, name: str, net: nn.Module,
     return net(x) if net16 is None else net16(x.to(torch.bfloat16))
 
 
+def match_proposals_to_gt(centers_mm, bbox_preds, roots_3d, gt_bbox,
+                          num_person, radius: float = 500.0,
+                          bbox_slack: float = 0.1):
+    """The reference's GT matching, batched: centers_mm (B, K, 3),
+    bbox_preds (B, K, 2), roots_3d (B, G, 3) and gt_bbox (B, G, 2) padded,
+    num_person (B,). Returns (proposal2gt (B, K) float, -1 for no person
+    within `radius` mm; adjusted bbox (B, K, 2)): where ANY coordinate of
+    a matched proposal's bbox is below its person's minus `bbox_slack`,
+    the WHOLE bbox is replaced by the person's (the reference's quirk)."""
+    G = roots_3d.shape[1]
+    dist = torch.sqrt(((centers_mm[:, :, None, :]
+                        - roots_3d[:, None, :, :]) ** 2).sum(-1))  # (B, K, G)
+    gt_valid = torch.arange(G, device=dist.device) < num_person[:, None]
+    dist = torch.where(gt_valid[:, None, :], dist,
+                       torch.full_like(dist, float("inf")))
+    min_dist, min_gt = dist.min(dim=2)
+    proposal2gt = torch.where(min_dist > radius, -1.0,
+                              min_gt.to(torch.float32))
+    matched = torch.gather(gt_bbox, 1, min_gt[..., None].expand(-1, -1, 2))
+    too_small = (bbox_preds < matched - bbox_slack).any(dim=2)
+    use_gt = (proposal2gt >= 0) & too_small
+    return proposal2gt, torch.where(use_gt[..., None], matched, bbox_preds)
+
+
 class FasterVoxelPose(nn.Module):
-    """HDN + JLN, eval mode. `heatmaps` layout: (B, V, J, H, W)."""
+    """HDN + JLN. `heatmaps` layout: (B, V, J, H, W)."""
 
     def __init__(self, cfg: FVPConfig):
         super().__init__()
@@ -72,49 +105,63 @@ class FasterVoxelPose(nn.Module):
                                               cfg.num_channel_joint_hidden)
 
     # ------------------------------------------------------------------
-    def detect(self, heatmaps, rc: RigConstants, packed: dict) -> dict:
+    def detect(self, heatmaps, rc: RigConstants, packed: dict | None,
+               train: bool = False, meta: dict | None = None) -> dict:
         """HDN: heatmaps -> proposals (B, K, 7), the raw maps and C2CNet's
-        input, the proposals' z-columns (B*K, Z, J)."""
+        input, the proposals' z-columns (B*K, Z, J). In train mode
+        CenterNet and C2CNet run as their modules, and with `meta` the
+        proposals are matched to its people."""
         cfg = self.cfg
         B = heatmaps.shape[0]
         K = cfg.max_people
         nx, ny, nz = cfg.voxels_per_axis
 
         volumes = whole_sample(heatmaps, rc, cfg)            # (B, X, Y, Z, J)
-        bev = volumes.amax(dim=3)                            # (B, X, Y, J)
-        hm2d, bbox_map = centernet_forward(packed["center_net"], bev)
-        confs2d, xy, flat = nms_topk_2d(hm2d[..., 0], K)
+        if train:
+            hm2d, bbox_map = self.pose_net.center_net(volumes)
+        else:
+            bev = volumes.amax(dim=3)                        # (B, X, Y, J)
+            hm2d, bbox_map = centernet_forward(packed["center_net"], bev)
+        confs2d, xy, flat = nms_topk_2d(hm2d[..., 0].detach(), K)
 
         bbox_flat = bbox_map.reshape(B, nx * ny, 2)
         match_bbox = torch.gather(
-            bbox_flat, 1, flat[:, :, None].expand(B, K, 2))  # (B, K, 2)
+            bbox_flat.detach(), 1, flat[:, :, None].expand(B, K, 2))
         J = volumes.shape[-1]
         vol_flat = volumes.reshape(B, nx * ny, nz, J)
         columns = torch.gather(
             vol_flat, 1, flat[:, :, None, None].expand(B, K, nz, J))
         columns = columns.reshape(B * K, nz, J)
-        if cfg.fuse_p2p and nz % 4 == 0:
+        if train:
+            hm1d = self.pose_net.c2c_net(columns)
+        elif cfg.fuse_p2p and nz % 4 == 0:
             hm1d = c2cnet(packed["c2c_net"], columns)
         else:
             hm1d = _cudnn_net(packed, "c2c_net", self.pose_net.c2c_net,
                               columns)
         hm1d = hm1d.reshape(B, K, nz)
 
-        z_idx = torch.argmax(hm1d, dim=2)                    # (B, K)
-        confs1d = hm1d.amax(dim=2)
+        z_idx = torch.argmax(hm1d.detach(), dim=2)           # (B, K)
+        confs1d = hm1d.detach().amax(dim=2)
         scale, bias = rc.voxel_to_mm
         idx_xyz = torch.cat([xy, z_idx[:, :, None].to(torch.int32)],
                             dim=2).to(torch.float32)
         centers_mm = idx_xyz * scale + bias                  # (B, K, 3)
         confs = confs2d * confs1d
-        proposal2gt = (confs > cfg.min_score).to(torch.float32) - 1.0
+        if train and meta is not None:
+            proposal2gt, match_bbox = match_proposals_to_gt(
+                centers_mm, match_bbox, meta["roots_3d"], meta["bbox"],
+                meta["num_person"])
+        else:
+            proposal2gt = (confs > cfg.min_score).to(torch.float32) - 1.0
         proposals = torch.cat([centers_mm, proposal2gt[:, :, None],
                                confs[:, :, None], match_bbox], dim=2)
         return {"proposals": proposals, "hm2d": hm2d[..., 0], "hm1d": hm1d,
                 "bbox_flat": bbox_flat, "columns": columns}
 
     # ------------------------------------------------------------------
-    def localize(self, heatmaps, rc: RigConstants, proposals, packed: dict):
+    def localize(self, heatmaps, rc: RigConstants, proposals,
+                 packed: dict | None, train: bool = False):
         """JLN: tri-planes -> P2PNet -> soft-argmax -> fusion.
         Returns (fused (B, K, J, 3), planes (3, B, K, J, 2), confs (B, K))."""
         cfg = self.cfg
@@ -126,23 +173,41 @@ class FasterVoxelPose(nn.Module):
         planes, offsets = person_planes(
             heatmaps, rc, cfg, proposals[..., 0:3], proposals[..., 5:7],
             person_mask)                                     # (3, BK, n, n, J)
-        flat = planes.reshape(3 * B * K, n, n, J)
-        if cfg.fuse_p2p and hourglass_supported(flat.shape):
-            feats = p2pnet(packed["p2p_net"], flat)
+        if train:
+            # the reference trains the JLN per scene on its matched people
+            # only: the plane stacks scene-major, each scene a BatchNorm
+            # group of 3K members under the mask. The masked BatchNorm
+            # zeroes the other members, so their planes (zero here, sampled
+            # in the reference) change nothing.
+            pb = planes.reshape(3, B, K, n, n, J).transpose(0, 1) \
+                .reshape(B * 3 * K, n, n, J)
+            mask2d = person_mask[:, None, :].expand(B, 3, K).reshape(
+                B, 3 * K)
+            feats_b = self.joint_net.conv_net(pb, mask2d)
+            feats = feats_b.reshape(B, 3, K, n, n, J).transpose(0, 1) \
+                .reshape(3 * B * K, n, n, J)
+            weights = self.joint_net.weight_net(feats_b, mask2d).reshape(
+                B, 3, K, J, 1).transpose(0, 1).reshape(3, B * K, J, 1)
+            coords, confs = plain_softargmax.soft_argmax(
+                feats.reshape(3, B * K, n * n, J), rc.center_grid, cfg.beta)
         else:
-            feats = _cudnn_net(packed, "conv_net", self.joint_net.conv_net,
-                               flat)
-        coords, confs = soft_argmax(feats.reshape(3, B * K, n * n, J),
-                                    rc.center_grid, cfg.beta)
+            flat = planes.reshape(3 * B * K, n, n, J)
+            if cfg.fuse_p2p and hourglass_supported(flat.shape):
+                feats = p2pnet(packed["p2p_net"], flat)
+            else:
+                feats = _cudnn_net(packed, "conv_net",
+                                   self.joint_net.conv_net, flat)
+            coords, confs = soft_argmax(feats.reshape(3, B * K, n * n, J),
+                                        rc.center_grid, cfg.beta)
+            pooled = weightnet_pool(feats, packed["weight_net"])  # (3BK, J, C)
+            weights = self.joint_net.weight_net.head(pooled).reshape(
+                3, B * K, J, 1)
         off = offsets.reshape(B * K, 1, 3)
         coords = torch.stack([
             coords[0] + off[..., 0:2],                       # xy plane
             coords[1] + off[..., ::2],                       # xz plane
             coords[2] + off[..., 1:],                        # yz plane
         ])
-        pooled = weightnet_pool(feats, packed["weight_net"])  # (3BK, J, C)
-        weights = self.joint_net.weight_net.head(pooled).reshape(
-            3, B * K, J, 1)
         fused = self._fuse(coords, weights)                  # (BK, J, 3)
         return (fused.reshape(B, K, J, 3), coords.reshape(3, B, K, J, 2),
                 confs.reshape(B, K))
@@ -164,24 +229,35 @@ class FasterVoxelPose(nn.Module):
         return torch.cat([x, y, z], dim=2)
 
     # ------------------------------------------------------------------
-    def forward(self, heatmaps, rc: RigConstants, packed: dict):
-        """`packed`: the kernels' weights, engine/packing.py::pack_model."""
+    def forward(self, heatmaps, rc: RigConstants, packed: dict | None = None,
+                train: bool = False, meta: dict | None = None):
+        """`packed`: the kernels' weights (engine/packing.py::pack_model),
+        which the eval forward needs. `train` must match the module's mode
+        (`model.train()` / `model.eval()`); `meta` (train mode): the
+        batch's people (roots_3d, bbox, num_person) the proposals are
+        matched to."""
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a module in "
+                             f"{'train' if self.training else 'eval'} mode")
+        if not train and packed is None:
+            raise ValueError("the eval forward needs the packed weights")
         cfg = self.cfg
         B = heatmaps.shape[0]
         J = cfg.num_joints
 
-        det = self.detect(heatmaps, rc, packed)
+        det = self.detect(heatmaps, rc, packed, train, meta)
         proposals = det["proposals"]
         mask = proposals[..., 3] >= 0                        # (B, K)
         fused, planes, jln_confs = self.localize(heatmaps, rc, proposals,
-                                                 packed)
+                                                 packed, train)
 
         # unmatched people are zeroed; matched ones take the JLN score
         fmask = mask[..., None, None].to(fused.dtype)
         fused = fused * fmask
         planes = planes * fmask[None]
         proposals = proposals.clone()
-        proposals[..., 4] = torch.where(mask, jln_confs, proposals[..., 4])
+        proposals[..., 4] = torch.where(mask, jln_confs.detach(),
+                                        proposals[..., 4])
         tail = proposals[:, :, None, 3:5].expand(B, proposals.shape[1], J, 2)
         return {
             "fused_poses": torch.cat([fused, tail], dim=3),
@@ -192,3 +268,75 @@ class FasterVoxelPose(nn.Module):
             "hm1d": det["hm1d"],
             "bbox_flat": det["bbox_flat"],
         }
+
+
+# ---------------------------------------------------------------------------
+# training losses
+# ---------------------------------------------------------------------------
+
+def compute_losses(cfg: FVPConfig, outputs: dict, targets: dict,
+                   meta: dict) -> dict:
+    """The four losses of the reference package's `compute_losses`, with
+    its masking and normalisation.
+
+    targets: 2d_heatmaps (B, X, Y), 1d_heatmaps (B, G, Z), index (B, G),
+             bbox (B, G, 2), mask (B, G)
+    meta:    joints_3d (B, G, J, 3), joints_3d_vis (B, G, J)
+    """
+    prop = outputs["proposals"]
+    mask = outputs["mask"]                                  # (B, K)
+    B, K = mask.shape
+    J = cfg.num_joints
+    p2g_idx = prop[..., 3].clamp(min=0.0).to(torch.int64)    # (B, K)
+    n_matched = mask.sum()
+
+    # 2D BEV heatmap MSE over every cell
+    loss_2d = cfg.lambda_loss_2d * ((outputs["hm2d"]
+                                     - targets["2d_heatmaps"]) ** 2).mean()
+
+    # 1D z-heatmap MSE over matched proposals only
+    t1d = targets["1d_heatmaps"]
+    Z = t1d.shape[2]
+    matched_1d = torch.gather(t1d, 1, p2g_idx[:, :, None].expand(B, K, Z))
+    se_1d = (outputs["hm1d"] - matched_1d) ** 2
+    denom_1d = (n_matched * Z).clamp(min=1)
+    loss_1d = cfg.lambda_loss_1d * (se_1d * mask[:, :, None]).sum() \
+        / denom_1d
+
+    # bbox L1 at the GT center cells (the target mask is `arange <=
+    # num_person`, one padding row included, as the reference has it)
+    gt_index = targets["index"].to(torch.int64)             # (B, G)
+    pred_bbox = torch.gather(outputs["bbox_flat"], 1,
+                             gt_index[:, :, None].expand(-1, -1, 2))
+    tmask = targets["mask"].to(torch.float32)
+    denom_bb = (tmask.sum() * 2).clamp(min=1)
+    loss_bbox = cfg.lambda_loss_bbox * ((pred_bbox - targets["bbox"]).abs()
+                                        * tmask[:, :, None]).sum() / denom_bb
+
+    # joint losses over matched proposals, visibility-weighted
+    gt_j = torch.gather(meta["joints_3d"], 1,
+                        p2g_idx[:, :, None, None].expand(B, K, J, 3))
+    vis = torch.gather(meta["joints_3d_vis"].to(torch.float32), 1,
+                       p2g_idx[:, :, None].expand(B, K, J))[..., None]
+    pm = mask[:, :, None, None].to(torch.float32)
+
+    def masked_l1(pred, gt, width):
+        denom = (n_matched * J * width).clamp(min=1)
+        return ((pred * vis - gt * vis).abs() * pm).sum() / denom
+
+    planes = outputs["plane_poses"]
+    loss_joint = (
+        masked_l1(planes[0], gt_j[..., 0:2], 2)
+        + masked_l1(planes[1], gt_j[..., ::2], 2)
+        + masked_l1(planes[2], gt_j[..., 1:], 2)
+        + cfg.lambda_loss_fused
+        * masked_l1(outputs["fused_poses"][..., 0:3], gt_j, 3))
+    loss_joint = torch.where(n_matched > 0, loss_joint,
+                             torch.zeros_like(loss_joint))
+    return {
+        "2d_heatmaps": loss_2d,
+        "1d_heatmaps": loss_1d,
+        "bbox": loss_bbox,
+        "joint": loss_joint,
+        "total": loss_2d + loss_1d + loss_bbox + loss_joint,
+    }

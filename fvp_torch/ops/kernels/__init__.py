@@ -3,7 +3,9 @@
 Each wrapper takes its kernel's plain PyTorch version for a tensor on the
 CPU, and for a CUDA tensor launches the kernel or raises: there is no
 fallback. Each counts its kernel launches in `launches`, so a run can show
-that it went through the kernels.
+that it went through the kernels. No kernel has a backward: a CUDA input
+that requires grad raises rather than give an output cut from the graph
+(the training path's K1 and K2 take inputs that carry none).
 """
 
 from __future__ import annotations
@@ -40,9 +42,13 @@ def ptr(t: torch.Tensor | None) -> int | None:
 def check(t: torch.Tensor, name: str, shape=None,
           dtype=torch.float32, device=None) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
-    `shape`, where given; None entries match any size)."""
+    `shape`, where given; None entries match any size) that does not
+    require grad."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.requires_grad:
+        raise ValueError(f"{name}: requires grad; the kernel has no "
+                         "backward")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -1,5 +1,5 @@
 """The port imports no JAX: a static scan of fvp_torch/, chip_smoke.py and
-the port's CLI, run/validate_torch.py.
+the port's CLIs, run/validate_torch.py and run/train_torch.py.
 
 The test process already has jax imported (the interpreter's site setup
 imports it), so `sys.modules` cannot show what the port imports; the AST
@@ -14,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "fvp_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "run" / "validate_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "run" / "validate_torch.py",
+    ROOT / "run" / "train_torch.py"]
 BANNED = ("jax", "jaxlib", "flax", "optax", "fvp_tpu")
 
 

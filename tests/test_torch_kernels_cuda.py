@@ -10,7 +10,10 @@ and a weight ring of one slot, held also against its CPU emulation in the
 kernel's own order of sums, WeightNet's pool in an odd number of bands and
 in chunks of joints, and the `fuse_p2p` path; and the eval engine's
 shapes (B = 8 frames, P = 80 people at the flagship widths), its device
-splat, and run_validation on the card against the CPU.
+splat, and run_validation on the card against the CPU; the entry points
+computing float32 without TF32 whatever the global flags say; the
+wrappers refusing inputs that require grad; a full-width train step
+against the CPU, and the train CLI on the card.
 
 These need an NVIDIA card and skip without one. The card's machine has no
 JAX, so run them there without the repo's conftest:
@@ -841,3 +844,142 @@ def test_run_validation_cuda_matches_cpu(dev):
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=5e-2)
     assert got["metrics"]["total_gt"] == ref["metrics"]["total_gt"] > 0
     assert got["fps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# float32 means float32: the entry points under PyTorch's default TF32 flags
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tf32_on(dev):
+    """TF32 on for cuDNN convs and matmuls, as PyTorch's default has it
+    for convs, for one test; the fixture `dev`'s flags restored after."""
+    saved = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield dev
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_predictor_is_float32_under_tf32_flags(tf32_on):
+    """test_predictor_cuda_matches_cpu with TF32 switched on first: the
+    same masks and poses within the same 5e-2 mm, and the global flags
+    left as the caller set them."""
+    test_predictor_cuda_matches_cpu(tf32_on)
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
+def test_run_validation_is_float32_under_tf32_flags(tf32_on):
+    test_run_validation_cuda_matches_cpu(tf32_on)
+    assert torch.backends.cudnn.allow_tf32
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def test_wrappers_reject_inputs_that_require_grad(dev):
+    """No kernel has a backward: a CUDA input that requires grad raises
+    rather than give an output cut from the graph."""
+    cfg = _cfg(15, 16)
+    _, _, rc, hm = _inputs(cfg, dev)
+    hm.requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        ksamp.whole_sample(hm, rc, cfg)
+    B, K = hm.shape[0], cfg.max_people
+    centers = torch.zeros((B, K, 3), device=dev)
+    bbox = torch.full((B, K, 2), 0.5, device=dev)
+    mask = torch.ones((B, K), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="requires grad"):
+        ksamp.person_planes(hm, rc, cfg, centers, bbox, mask)
+    planes = torch.zeros((3, 2, 64, 15), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="requires grad"):
+        ksa.soft_argmax(planes, torch.zeros((3, 64, 2), device=dev), 100.0)
+    model = _model(15, dev)
+    packed = pack_model(model)
+    feats = torch.zeros((6, 16, 16, 15), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="requires grad"):
+        kwn.weightnet_pool(feats, packed["weight_net"])
+    bev = torch.zeros((1, 16, 16, 15), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="requires grad"):
+        kcn.centernet_forward(packed["center_net"], bev)
+
+
+def test_train_step_cuda_matches_cpu(tf32_on):
+    """One step of the trainer at the flagship widths (5 views of 240x128
+    heatmaps rendered on the device, an 80x80x20 space, 10 people in 64^3
+    cubes), chip_smoke's phase 9 first batch of 8 (people matched: the
+    joint loss > 0) from its 'flax' init, under TF32 flags (the trainer
+    computes float32 without them): the card against the CPU, with
+    phase 9's tolerances (the conv biases before a BatchNorm, whose exact
+    gradient is 0, not held); K1 and K2 launched once each (K2 with its
+    layout), no other kernel."""
+    import chip_smoke as cs
+    from fvp_torch.config import load_config
+    from fvp_torch.data.loader import seq_grouped_batches
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.engine.init import flax_init
+    from fvp_torch.engine.train import Trainer, step_inputs
+
+    cfg = load_config(cs.EVAL_CFG, synthetic_num_data=cs.TRAIN_SCENES)
+    ds = build_dataset("synthetic", cfg, is_train=True)
+    _, batch = next(seq_grouped_batches(ds, cfg.batch_size, cfg.seed, 0))
+    init = FasterVoxelPose(cfg)
+    flax_init(init, torch.Generator().manual_seed(cfg.seed))
+    state = init.state_dict()
+    runs = {}
+    for device in (tf32_on, "cpu"):
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(state)
+        tr = Trainer(cfg, model, device)
+        rc = build_rig_constants(cfg, ds.rigs["synthetic"]).to(device)
+        x, targets, meta = step_inputs(batch, device)
+        reset_launches()
+        losses = tr.train_step(x, rc, targets, meta)
+        counts = {n: k.launches for n, k in all_kernels().items()}
+        runs[str(device)] = ({k: float(v) for k, v in losses.items()},
+                             {n: p.grad.cpu() for n, p in
+                              model.named_parameters()}, counts)
+    (lg, gg, cg), (lc, gc, _) = runs["cuda"], runs["cpu"]
+    assert lc["joint"] > 0
+    assert {n: c for n, c in cg.items() if c} == {
+        "whole_sample": 1, "person_planes": 1, "person_planes.layout": 1}
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= cs.TRAIN_LOSS_RTOL * max(abs(v), 1e-12), k
+    net = {}
+    for n, g in gc.items():
+        key = ".".join(n.split(".")[:2])
+        net[key] = max(net.get(key, 0.0), float(g.abs().max()))
+    zero = cs.pre_bn_biases(FasterVoxelPose(cfg))     # exact gradient 0
+    assert len(zero) > 40
+    for n, g in gc.items():
+        if n in zero:
+            continue
+        tol = cs.TRAIN_GRAD_RTOL * float(g.abs().max()) \
+            + cs.TRAIN_GRAD_NET_RTOL * net[".".join(n.split(".")[:2])]
+        assert float((gg[n] - g).abs().max()) <= tol, n
+
+
+def test_train_cli_on_the_card(dev, tmp_path):
+    """run/train_torch.py on the tiny synthetic config without --device:
+    one epoch on the card, with its evaluation and checkpoint."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text = open(os.path.join(root, "configs/test/tiny_synthetic.yaml")) \
+        .read().replace("OUTPUT_DIR: '/tmp/fvp_out'",
+                        f"OUTPUT_DIR: '{tmp_path}'")
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(text)
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(root, "run/train_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    assert cli.main(["--cfg", str(cfg_path), "--epochs", "1"]) == 0
+    ckpt = torch.load(tmp_path / "tiny" / "checkpoint.pth",
+                      weights_only=True, map_location="cpu")
+    assert ckpt["epoch"] == 1 and ckpt["trainer"]["step"] == 3
