@@ -87,7 +87,23 @@ non-zero:
    the first step against the CPU (losses, gradients, BatchNorm
    statistics), and takes 2 image-source steps at batch 2 through the
    frozen float32 ResNet-50 (stem, deconv head, K1, K2 a step);
-10. prints one JSON line of the kernels, then the result line.
+10. drives the streaming service (fvp_torch/service/) at the reference's
+    serving configuration: FVPConfig() at compute_dtype='bfloat16' with
+    the seeded ResNet-50, the model and backbone read from torch files
+    written for the phase. (a) `run_service` on the card as users run it
+    (spawned synthetic source, inference and visualization processes;
+    SERVICE_FRAMES frames; JPEGs saved): results arrived, the service
+    stopped by itself, no child died, and the pipeline's own latency_ms
+    and fps printed beside the card's name and power limit; (b) its
+    inference process run in this process on FRAMES seeded 5-view frames
+    at 512x960 with every launch count set to 0 just before: the stem
+    (1 a frame), the bottleneck stage (10 conv_wgmma a frame), the
+    deconv head (3 a frame) and K1..K5 ran and nothing else did, and
+    frame 0's poses equal, bit for bit, a Predictor built here from the
+    same files on the same prepared frame; (c) the same weights written
+    in the reference's flax msgpack layout load to the same state dicts
+    as the torch files;
+11. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
 for cuDNN convs and matmuls, so that the card's plain path and the float32
@@ -227,6 +243,11 @@ TRAIN_PROFILE_GROUPS = [
 # the image-source train steps (a smaller depth than the heatmap ones)
 TRAIN_IMAGE_BATCH = 2
 TRAIN_IMAGE_STEPS = 2
+# The service phase: frames that run_service serves (its synthetic source
+# gives 480x640 frames, resized to the working 960x512 on the host), and
+# the results of either run taken as warm-up (cuDNN's first calls).
+SERVICE_FRAMES = 20
+SERVICE_WARMUP = 2
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -678,11 +699,15 @@ def main() -> int:
     # 9. training: the trainer's steps at the train batch of 8
     train_launches, train_res = train_phase(K, smi)
 
+    # 10. the streaming service at the reference's serving configuration
+    service_launches, service_res = service_phase(K, state, bb_state, rig,
+                                                  smi)
+
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
              "bf16_image_path": bf16_launches, "eval_path": eval_launches,
-             "train_path": train_launches}
+             "train_path": train_launches, "service_path": service_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage"):
@@ -712,6 +737,11 @@ def main() -> int:
                     "train_losses": train_res["losses"],
                     "train_image_step_ms": train_res["image_step_ms"],
                     "tf32_pose_shift_mm": eval_res["tf32_shift_mm"],
+                    "service_latency_ms": service_res["latency_ms"],
+                    "service_fps": service_res["fps"],
+                    "service_inprocess_latency_ms":
+                        service_res["inprocess_latency_ms"],
+                    "service_parts_ms": service_res["parts_ms"],
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2166,6 +2196,191 @@ def numpy_render(ds, rec: int, x, b: int, render) -> np.ndarray:
                draws=(x["scale"][b, v].cpu().numpy(),
                       x["occ"][b, v].cpu().numpy()))
         for v, (j2d, jv) in enumerate(zip(views_2d, views_vis))])
+
+
+class Collect:
+    """The service's result sink (ServiceConfig.on_result): called in the
+    spawned visualization process, it sends each result's numbers back
+    through a queue. A module-level class, so that it pickles across the
+    spawn."""
+
+    def __init__(self, q):
+        self.q = q
+
+    def __call__(self, res) -> None:
+        self.q.put({"timestamp": res["timestamp"],
+                    "latency_ms": res["latency_ms"], "fps": res["fps"],
+                    "people": int((res["poses"][:, 0, 3] >= 0).sum())})
+
+
+def service_phase(K, state, bb_state, rig, smi):
+    """Phase 10: the streaming service at the reference's serving
+    configuration, (a) as users run it, (b) its inference process in this
+    process with the launch counts, (c) the msgpack layout of the same
+    weights. Returns (launches of (b), numbers)."""
+    import os
+    import queue
+    import tempfile
+
+    import torch
+
+    from fvp_torch.config import FVPConfig
+    from fvp_torch.engine import flax_msgpack
+    from fvp_torch.engine.checkpoint import (load_backbone_state,
+                                             load_model_state)
+    from fvp_torch.engine.serve import Predictor
+    from fvp_torch.models.convert import (to_jax_backbone_variables,
+                                          to_jax_variables)
+    from fvp_torch.service import pipeline
+    from fvp_torch.service.sources import SPAWN, FrameQueue
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    model_pth = os.path.join(d, "model_best.pth")
+    bb_pth = os.path.join(d, "pose_resnet50.pth")
+    torch.save(state, model_pth)
+    torch.save(bb_state, bb_pth)
+    cfg = FVPConfig(min_score=MIN_SCORE_BF16, compute_dtype="bfloat16",
+                    pretrained_backbone=bb_pth)
+    log(f"service phase: FVPConfig() at compute_dtype='bfloat16', "
+        f"{cfg.num_views} views of {cfg.image_size[0]}x{cfg.image_size[1]}, "
+        f"heatmaps {cfg.heatmap_size[0]}x{cfg.heatmap_size[1]}, space "
+        f"{cfg.voxels_per_axis}, K = {cfg.max_people} in "
+        f"{cfg.ind_voxels_per_axis} cubes, ResNet-{cfg.resnet_layers}; "
+        f"weights from {os.path.basename(model_pth)} and "
+        f"{os.path.basename(bb_pth)}")
+
+    # (a) run_service on the card: spawned source, inference and viz
+    sink = SPAWN.Queue()
+    out_dir = os.path.join(d, "jpg")
+    t0 = time.perf_counter()
+    died = pipeline.run_service(pipeline.ServiceConfig(
+        checkpoint=model_pth, num_views=cfg.num_views,
+        max_frames=SERVICE_FRAMES, view_mode="save", output_dir=out_dir,
+        on_result=Collect(sink), cfg_obj=cfg, device="cuda"))
+    wall = time.perf_counter() - t0
+    got = []
+    while True:
+        try:
+            got.append(sink.get(timeout=1.0))
+        except queue.Empty:
+            break
+    jpgs = len(os.listdir(out_dir)) if os.path.isdir(out_dir) else 0
+    if died is not None:
+        raise AssertionError(f"service: the {died} process died")
+    if not got or jpgs < 1:
+        raise AssertionError(f"service: {len(got)} results, {jpgs} JPEGs")
+    got.sort(key=lambda r: r["timestamp"])
+    lat = [r["latency_ms"] for r in got]
+    steady = lat[SERVICE_WARMUP:] or lat
+    p90 = float(np.percentile(steady, 90))
+    log(f"service (run_service, spawned source/inference/viz, save mode) "
+        f"on {smi}: stopped by itself after {SERVICE_FRAMES} frames in "
+        f"{wall:.1f} s (process start-up included), no child died; "
+        f"{len(got)} results reached the viz process (the queues drop the "
+        f"oldest), {jpgs} JPEGs; the pipeline's latency_ms median "
+        f"{statistics.median(steady):.3f}, p90 {p90:.3f} over "
+        f"{len(steady)} results (first {SERVICE_WARMUP} excluded: "
+        f"{', '.join(f'{x:.1f}' for x in lat[:SERVICE_WARMUP])}); its fps "
+        f"{got[-1]['fps']:.2f} at the last result; people above the gate "
+        f"{[r['people'] for r in got]}")
+
+    # (b) its inference process here, on FRAMES seeded frames at the
+    # working size, with the launch counts
+    rng = np.random.RandomState(11)
+    w, h = cfg.image_size
+    frames = [[rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+               for _ in range(cfg.num_views)] for _ in range(FRAMES)]
+    frame_q, result_q = FrameQueue(maxsize=FRAMES), \
+        FrameQueue(maxsize=FRAMES)
+    for q in (frame_q, result_q):
+        q.q.cancel_join_thread()     # a failure must not hang the exit
+    for i, views in enumerate(frames):
+        frame_q.put((float(i), views))
+    stop = SPAWN.Value("i", 0)
+    svc = pipeline.ServiceConfig(checkpoint=model_pth,
+                                 num_views=cfg.num_views, max_frames=FRAMES,
+                                 view_mode="none", cfg_obj=cfg,
+                                 device="cuda")
+    K.reset_launches()
+    pipeline.inference_process(svc, frame_q, result_q, stop)
+    torch.cuda.synchronize()
+    launches = launch_counts(K)
+    results = [result_q.get(timeout=10.0) for _ in range(FRAMES)]
+    log(f"service inference process: {FRAMES} frames, launches {launches}")
+    expect_launches(launches, BF16_IMAGE_PATH, "service path")
+    expect_per_frame(launches, {"stem": 1, "deconv_stage": 3},
+                     "service path")
+    expect_conv_routes(K, "bottleneck_stage", FRAMES, STAGE_ROUTES)
+    in_lat = [r["latency_ms"] for r in results]
+    log_latency(f"service inference process latency_ms on {smi} "
+                "(prepare on the host, copy, Predictor, poses to the host)",
+                in_lat)
+    pred = Predictor.from_state_dict(
+        cfg, load_model_state(model_pth), rig, device="cuda",
+        backbone_state_dict=load_backbone_state(bb_pth))
+    ref = pred(pipeline._frames_to_images(cfg, frames[0]))["fused_poses"]
+    ref = ref[0].cpu().numpy()
+    got0 = results[0]["poses"]
+    same = got0.shape == ref.shape and np.array_equal(got0, ref)
+    err = float(np.abs(got0 - ref).max()) if got0.shape == ref.shape \
+        else float("inf")
+    log(f"service frame 0 poses {got0.shape} against Predictor(prepare("
+        f"frame 0)) built here from the same files: bitwise equal {same} "
+        f"(max_abs_err {err:.3e} mm); {int((ref[:, 0, 3] >= 0).sum())} "
+        f"people above the gate")
+    if not same or not np.isfinite(got0).all():
+        raise AssertionError("service: frame 0's poses differ from a "
+                             "direct Predictor call")
+
+    # where a service frame's time goes: its steps one by one on frames
+    # 1..5 (warm)
+    parts = {"prepare (_frames_to_images, host)": [],
+             "copy to the card (pageable)": [],
+             "Predictor on the card's frame": [], "poses to the host": []}
+    for views in frames[1:6]:
+        t = [time.perf_counter()]
+        x = pipeline._frames_to_images(cfg, views)
+        t.append(time.perf_counter())
+        xt = torch.as_tensor(x, device="cuda")
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = pred(xt)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out["fused_poses"][0].cpu().numpy()
+        t.append(time.perf_counter())
+        for name, a, b in zip(parts, t, t[1:]):
+            parts[name].append((b - a) * 1e3)
+    log(f"service frame by step on {smi} (medians of 5 frames, host "
+        f"clock):")
+    for name, ms in parts.items():
+        log(f"  {statistics.median(ms):8.3f} ms  {name}")
+
+    # (c) the same weights in the reference's flax msgpack layout
+    model_msg = os.path.join(d, "model_best.msgpack")
+    bb_msg = os.path.join(d, "pose_resnet50.msgpack")
+    with open(model_msg, "wb") as f:
+        f.write(flax_msgpack.dumps(to_jax_variables(state)))
+    with open(bb_msg, "wb") as f:
+        f.write(flax_msgpack.dumps(to_jax_backbone_variables(bb_state)))
+    for what, msg, pth, load in (
+            ("model", model_msg, model_pth, load_model_state),
+            ("backbone", bb_msg, bb_pth, load_backbone_state)):
+        a, b = load(msg), load(pth)
+        keys = [k for k in b if not k.endswith("num_batches_tracked")]
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k])
+                                       for k in keys):
+            raise AssertionError(f"service: the {what} msgpack loads to "
+                                 "other weights than the .pth")
+        log(f"msgpack {what}: {os.path.getsize(msg) / 1e6:.1f} MB in the "
+            f"reference's flax layout loads to the .pth's {len(keys)} "
+            f"tensors, bit for bit")
+    tmp.cleanup()
+    return launches, {"latency_ms": lat, "fps": got[-1]["fps"],
+                      "inprocess_latency_ms": in_lat,
+                      "parts_ms": {k: statistics.median(v)
+                                   for k, v in parts.items()}}
 
 
 def check_fused(got, ref, label, tol_mm: float = 5e-2) -> None:

@@ -9,7 +9,15 @@ and the best metric. `model_best.pth` holds the model's state dict alone,
 with the original implementation's keys, which run/validate_torch.py
 --checkpoint reads. Both are written atomically (a temporary file, then
 os.replace) and read with weights_only=True, so loading one runs no code.
-Reading the reference package's flax msgpack checkpoints is not done here.
+
+`load_model_state` and `load_backbone_state` read the weights that the
+CLIs and the service load, choosing by extension as the reference's
+run/train.py does: a `.pth` or `.tar` is a torch state dict; anything
+else is the reference package's flax msgpack (`model_best.msgpack` from
+its save_best, a backbone from its tools/convert_backbone.py), decoded
+by engine/flax_msgpack.py and mapped through models/convert.py. Neither
+format runs code when it is read. Resuming the reference's
+`checkpoint.msgpack` train state is not done here.
 """
 
 from __future__ import annotations
@@ -17,6 +25,10 @@ from __future__ import annotations
 import os
 
 import torch
+
+from fvp_torch.engine import flax_msgpack
+from fvp_torch.models.convert import (from_jax_backbone_variables,
+                                      from_jax_variables)
 
 CHECKPOINT = "checkpoint.pth"
 BEST = "model_best.pth"
@@ -72,3 +84,51 @@ def load_best(path: str, model) -> None:
         path = os.path.join(path, BEST)
     model.load_state_dict(torch.load(path, map_location="cpu",
                                      weights_only=True))
+
+
+def _is_torch_file(path: str) -> bool:
+    return path.endswith((".pth", ".tar"))
+
+
+def _read_state_dict(path: str) -> dict:
+    """A reference-keyed state dict from a torch file: the dict itself or
+    its 'state_dict' entry, a leading `module.` (DataParallel) dropped."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and isinstance(state.get("state_dict"), dict):
+        state = state["state_dict"]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state.items()}
+
+
+def _float32_leaves(tree):
+    """bfloat16 leaves (torch tensors from flax_msgpack) widened to
+    float32 numpy, which is exact; every other leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: _float32_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+def _flax_variables(path: str) -> dict:
+    tree = _float32_leaves(flax_msgpack.load(path))
+    if not {"params", "batch_stats"} <= set(tree):
+        raise ValueError(f"{path}: expected a flax {{'params', "
+                         f"'batch_stats'}} tree, got keys {sorted(tree)}")
+    return tree
+
+
+def load_model_state(path: str) -> dict:
+    """FasterVoxelPose's state dict from a torch file or the reference's
+    model_best.msgpack."""
+    if _is_torch_file(path):
+        return _read_state_dict(path)
+    return from_jax_variables(_flax_variables(path))
+
+
+def load_backbone_state(path: str) -> dict:
+    """PoseResNet's state dict from a torch file or the reference's
+    backbone msgpack."""
+    if _is_torch_file(path):
+        return _read_state_dict(path)
+    return from_jax_backbone_variables(_flax_variables(path))

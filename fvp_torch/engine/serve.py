@@ -40,8 +40,27 @@ from fvp_torch.models.resnet import PoseResNet
 @contextlib.contextmanager
 def float32_math():
     """TF32 off for cuDNN convs and for matmuls inside; the caller's flags
-    restored on the way out. Also a decorator."""
+    restored on the way out. Also a decorator.
+
+    Where torch has the per-backend `fp32_precision` strings, it sets
+    `cudnn.conv` and `cuda.matmul` to 'ieee' and restores the two strings
+    exactly, and never touches the legacy `allow_tf32` flags: torch
+    refuses to read those once a caller has set TF32 through the new
+    strings (torch.backends.fp32_precision, cudnn.fp32_precision or
+    cuda.matmul.fp32_precision), and a legacy write would leave
+    cudnn.conv at a caller's 'tf32'. Autograd reads the same global
+    strings, so a backward run inside computes in float32 too. A torch
+    without those strings takes the legacy flags."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    conv = getattr(cudnn, "conv", None)
+    if hasattr(conv, "fp32_precision"):
+        saved = conv.fp32_precision, matmul.fp32_precision
+        conv.fp32_precision = matmul.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            conv.fp32_precision, matmul.fp32_precision = saved
+        return
     saved = cudnn.allow_tf32, matmul.allow_tf32
     cudnn.allow_tf32 = matmul.allow_tf32 = False
     try:

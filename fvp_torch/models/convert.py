@@ -1,12 +1,14 @@
-"""Reference-package (flax) variables -> port state dict.
+"""Reference-package (flax) variables -> port state dict, and back.
 
-`from_jax_backbone_variables` does the same for the PoseResNet backbone.
 `from_jax_variables` maps the flax `{'params', 'batch_stats'}` tree of the
 HDN+JLN task nets, given as numpy arrays, onto the port's modules, whose
 keys are the reference model's (`pose_net.center_net.*`,
 `pose_net.c2c_net.*`, `joint_net.conv_net.*`, `joint_net.weight_net.*`).
 It is the inverse of the reference package's torch -> flax converter, so a
 port `state_dict()` round-trips through that converter bit for bit.
+`from_jax_backbone_variables` does the same for the PoseResNet backbone.
+`to_jax_variables` and `to_jax_backbone_variables` are their inverses:
+they give a port state dict the layout of the reference's checkpoints.
 
 Layer-name correspondence (flax auto-names follow execution order):
   BasicBlock_k {Conv_0, BatchNorm_0}          <- .block.{0,1}
@@ -23,6 +25,7 @@ ConvTranspose kernel is (k..., I, O) and spatially flipped against torch's
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -171,3 +174,144 @@ def from_jax_backbone_variables(variables_np: Mapping[str, Any]
         di += 1
     w.conv("final_layer", params["final_layer"])
     return w.out
+
+
+# the inverse direction: port state dict -> flax tree (the layout the
+# reference package's checkpoints hold)
+
+def _conv_k(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:
+        return np.transpose(w, (2, 3, 1, 0))
+    return np.transpose(w, (2, 1, 0))
+
+
+def _deconv_k(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:
+        return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))[::-1, ::-1])
+    return np.ascontiguousarray(np.transpose(w, (2, 0, 1))[::-1])
+
+
+class _Reader:
+    """Reads a port state dict into flax subtrees: the inverse of
+    `_Writer`, method by method."""
+
+    def __init__(self, state_dict: Mapping[str, torch.Tensor]):
+        self.sd = state_dict
+
+    def get(self, key: str) -> np.ndarray:
+        return self.sd[key].detach().cpu().numpy()
+
+    def conv(self, src: str, deconv: bool = False) -> dict:
+        w = self.get(f"{src}.weight")
+        out = {"kernel": np.ascontiguousarray(
+            _deconv_k(w) if deconv else _conv_k(w))}
+        if f"{src}.bias" in self.sd:
+            out["bias"] = self.get(f"{src}.bias")
+        return out
+
+    def bn(self, src: str) -> tuple[dict, dict]:
+        return ({"scale": self.get(f"{src}.weight"),
+                 "bias": self.get(f"{src}.bias")},
+                {"mean": self.get(f"{src}.running_mean"),
+                 "var": self.get(f"{src}.running_var")})
+
+    def dense(self, src: str) -> dict:
+        return {"kernel": np.ascontiguousarray(self.get(f"{src}.weight").T),
+                "bias": self.get(f"{src}.bias")}
+
+    def layers(self, src: str, convs: list, deconv: bool = False):
+        """[(flax name suffix, torch conv, torch bn)] -> (params, stats)
+        with Conv_i / BatchNorm_i (ConvTranspose_i for `deconv`)."""
+        p, s = {}, {}
+        for i, (c, b) in enumerate(convs):
+            p[f"{'ConvTranspose' if deconv else 'Conv'}_{i}"] = \
+                self.conv(f"{src}.{c}", deconv)
+            p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"] = self.bn(f"{src}.{b}")
+        return p, s
+
+    def res_block(self, src: str) -> tuple[dict, dict]:
+        convs = [("res_branch.0", "res_branch.1"),
+                 ("res_branch.3", "res_branch.4")]
+        if f"{src}.skip_con.0.weight" in self.sd:
+            convs.append(("skip_con.0", "skip_con.1"))
+        return self.layers(src, convs)
+
+    def hourglass(self, src: str) -> tuple[dict, dict]:
+        p, s = {}, {}
+        p["BasicBlock_0"], s["BasicBlock_0"] = self.layers(
+            f"{src}.front_layers.0", [("block.0", "block.1")])
+        p["ResBlock_0"], s["ResBlock_0"] = self.res_block(
+            f"{src}.front_layers.1")
+        ep, es = {}, {}
+        for dst, name in _ENC_RES:
+            ep[dst], es[dst] = self.res_block(
+                f"{src}.encoder_decoder.{name}")
+        for dst, name in _ENC_UP:
+            ep[dst], es[dst] = self.layers(
+                f"{src}.encoder_decoder.{name}", [("block.0", "block.1")],
+                deconv=True)
+        p["EncoderDecoder_0"], s["EncoderDecoder_0"] = ep, es
+        return p, s
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]
+                     ) -> dict[str, Any]:
+    """The port's FasterVoxelPose state dict -> the reference package's
+    flax {'params', 'batch_stats'} tree (numpy leaves); the inverse of
+    `from_jax_variables`, bit for bit."""
+    r = _Reader(state_dict)
+    params, stats = {}, {}
+
+    def net(name, src, heads):
+        p, s = r.hourglass(src)
+        for i, head in enumerate(heads):
+            p[f"Conv_{i}"] = r.conv(f"{src}.{head}")
+        params[name], stats[name] = p, s
+
+    net("center_net", "pose_net.center_net",
+        ["output_hm.0", "output_hm.2", "output_size.0", "output_size.2"])
+    net("c2c_net", "pose_net.c2c_net", ["output_hm"])
+    net("p2p_net", "joint_net.conv_net", ["output_layer"])
+    src = "joint_net.weight_net"
+    p, s = r.layers(src, [("heatmap_feature_net.0",
+                           "heatmap_feature_net.1")])
+    p["Dense_0"] = r.dense(f"{src}.output.0")
+    p["Dense_1"] = r.dense(f"{src}.output.2")
+    params["weight_net"], stats["weight_net"] = p, s
+    return {"params": params, "batch_stats": stats}
+
+
+def to_jax_backbone_variables(state_dict: Mapping[str, torch.Tensor]
+                              ) -> dict[str, Any]:
+    """The port's PoseResNet state dict -> the reference package's flax
+    tree; the inverse of `from_jax_backbone_variables`, bit for bit."""
+    r = _Reader(state_dict)
+    params, stats = {}, {}
+
+    def bn(p, s, name, src):
+        bp, bs = r.bn(src)
+        p[name], s[name] = {"BatchNorm_0": bp}, {"BatchNorm_0": bs}
+
+    params["conv1"] = r.conv("conv1")
+    bn(params, stats, "bn1", "bn1")
+    blocks = sorted({tuple(int(i) for i in m.groups()) for m in (
+        re.match(r"layer(\d+)\.(\d+)\.", k) for k in state_dict) if m})
+    for li, bi in blocks:
+        src, p, s = f"layer{li}.{bi}", {}, {}
+        k = 1
+        while f"{src}.conv{k}.weight" in state_dict:
+            p[f"conv{k}"] = r.conv(f"{src}.conv{k}")
+            bn(p, s, f"bn{k}", f"{src}.bn{k}")
+            k += 1
+        if f"{src}.downsample.0.weight" in state_dict:
+            p["down_conv"] = r.conv(f"{src}.downsample.0")
+            bn(p, s, "down_bn", f"{src}.downsample.1")
+        params[f"layer{li}_{bi}"], stats[f"layer{li}_{bi}"] = p, s
+    di = 0
+    while f"deconv_layers.{3 * di}.weight" in state_dict:
+        params[f"deconv{di}"] = r.conv(f"deconv_layers.{3 * di}",
+                                       deconv=True)
+        bn(params, stats, f"deconv_bn{di}", f"deconv_layers.{3 * di + 1}")
+        di += 1
+    params["final_layer"] = r.conv("final_layer")
+    return {"params": params, "batch_stats": stats}

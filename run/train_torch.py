@@ -32,7 +32,8 @@ import torch  # noqa: E402
 from fvp_torch.config import load_config  # noqa: E402
 from fvp_torch.data.loader import prefetch, seq_grouped_batches  # noqa: E402
 from fvp_torch.data.registry import build_dataset  # noqa: E402
-from fvp_torch.engine.checkpoint import (load_checkpoint, save_best,  # noqa: E402
+from fvp_torch.engine.checkpoint import (load_backbone_state,  # noqa: E402
+                                         load_checkpoint, save_best,
                                          save_checkpoint)
 from fvp_torch.engine.init import flax_init, reference_reinit  # noqa: E402
 from fvp_torch.engine.serve import resolve_device  # noqa: E402
@@ -43,16 +44,16 @@ from fvp_torch.models.faster_voxelpose import FasterVoxelPose  # noqa: E402
 from fvp_torch.models.resnet import PoseResNet  # noqa: E402
 from fvp_torch.utils.logging import (AverageMeter, MetricWriter,  # noqa: E402
                                      create_logger)
-from run.validate_torch import load_state_dict  # noqa: E402
 
 
 def load_backbone(cfg):
     """The frozen backbone of PRETRAINED_BACKBONE (a reference-keyed torch
-    state dict), or None without one."""
+    state dict, .pth/.tar, or the reference's backbone msgpack), or None
+    without one."""
     if not cfg.pretrained_backbone:
         return None
     backbone = PoseResNet(cfg.num_joints, cfg.resnet_layers)
-    backbone.load_state_dict(load_state_dict(cfg.pretrained_backbone))
+    backbone.load_state_dict(load_backbone_state(cfg.pretrained_backbone))
     return backbone
 
 

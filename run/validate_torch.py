@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Validate CLI of the PyTorch port: `python run/validate_torch.py --cfg
-configs/test/tiny_synthetic.yaml [--checkpoint model.pth] [--device cpu]`.
+configs/test/tiny_synthetic.yaml [--checkpoint model.pth|model_best.msgpack]
+[--device cpu]`.
 
 Builds the config's test dataset, the model (and, for the image heatmap
 source, the backbone from PRETRAINED_BACKBONE), loads the checkpoint, runs
@@ -8,14 +9,18 @@ fvp_torch.engine.validate.run_validation and logs FPS (first batch
 excluded) and the dataset's metrics. It runs on `cuda` unless --device
 says otherwise, and raises without a card.
 
-A checkpoint is a torch state dict of FasterVoxelPose with the original
-implementation's keys (`pose_net.center_net.*`, `pose_net.c2c_net.*`,
-`joint_net.conv_net.*`, `joint_net.weight_net.*`), plain or wrapped as
-{'state_dict': ...}, with or without a `module.` prefix; it is read with
-weights_only=True, and missing or unexpected keys raise. Without one the
-run warns and uses seeded random weights. PRETRAINED_BACKBONE is a torch
-state dict of the PoseResNet in the same layout (.pth / .tar); without one
-the image source warns and uses a seeded backbone.
+A checkpoint is chosen by its extension (engine/checkpoint.py::
+load_model_state). A `.pth` or `.tar` is a torch state dict of
+FasterVoxelPose with the original implementation's keys
+(`pose_net.center_net.*`, `pose_net.c2c_net.*`, `joint_net.conv_net.*`,
+`joint_net.weight_net.*`), plain or wrapped as {'state_dict': ...}, with
+or without a `module.` prefix, read with weights_only=True. Any other
+file is the reference package's flax `model_best.msgpack`. Missing or
+unexpected keys raise. Without a checkpoint the run warns and uses seeded
+random weights. PRETRAINED_BACKBONE is the PoseResNet's, a torch state
+dict in the same layout or the reference's backbone msgpack
+(tools/convert_backbone.py); without one the image source warns and uses
+a seeded backbone.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import torch  # noqa: E402
 
 from fvp_torch.config import load_config  # noqa: E402
 from fvp_torch.data.registry import build_dataset  # noqa: E402
+from fvp_torch.engine.checkpoint import (load_backbone_state,  # noqa: E402
+                                         load_model_state)
 from fvp_torch.engine.serve import resolve_device  # noqa: E402
 from fvp_torch.engine.validate import run_validation  # noqa: E402
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose  # noqa: E402
@@ -37,22 +44,13 @@ from fvp_torch.models.resnet import PoseResNet, seeded_state_dict  # noqa: E402
 from fvp_torch.utils.logging import create_logger  # noqa: E402
 
 
-def load_state_dict(path: str) -> dict:
-    """A reference-keyed state dict from a torch file: the dict itself or
-    its 'state_dict' entry, a leading `module.` (DataParallel) dropped."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(state, dict) and isinstance(state.get("state_dict"), dict):
-        state = state["state_dict"]
-    return {k[len("module."):] if k.startswith("module.") else k: v
-            for k, v in state.items()}
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--cfg", required=True)
     parser.add_argument("--checkpoint", default=None,
-                        help="torch state dict of FasterVoxelPose "
-                             "(reference keys)")
+                        help="FasterVoxelPose weights: a torch state "
+                             "dict (.pth/.tar, reference keys) or the "
+                             "reference package's model_best.msgpack")
     parser.add_argument("--seed", type=int, default=None,
                         help="override cfg.seed: the eval heatmap "
                              "augmentation draws and the held-out "
@@ -75,7 +73,7 @@ def main(argv=None) -> int:
     torch.manual_seed(cfg.seed)      # the weights without a checkpoint
     model = FasterVoxelPose(cfg)
     if args.checkpoint:
-        model.load_state_dict(load_state_dict(args.checkpoint))
+        model.load_state_dict(load_model_state(args.checkpoint))
         logger.info(f"loaded {args.checkpoint}")
     else:
         logger.warning("no checkpoint; seeded random weights")
@@ -84,7 +82,8 @@ def main(argv=None) -> int:
     if cfg.test_heatmap_src == "image":
         backbone = PoseResNet(cfg.num_joints, cfg.resnet_layers)
         if cfg.pretrained_backbone:
-            backbone.load_state_dict(load_state_dict(cfg.pretrained_backbone))
+            backbone.load_state_dict(
+                load_backbone_state(cfg.pretrained_backbone))
             logger.info(f"loaded backbone {cfg.pretrained_backbone}")
         else:
             logger.warning("no PRETRAINED_BACKBONE; seeded backbone")

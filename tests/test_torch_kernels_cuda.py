@@ -863,18 +863,68 @@ def tf32_on(dev):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def test_predictor_is_float32_under_tf32_flags(tf32_on):
+# PyTorch's per-backend TF32 strings, parents before children (writing a
+# parent writes its children)
+FP32_PRECISION = ("", "cudnn", "cuda.matmul", "cudnn.conv", "cudnn.rnn")
+
+
+def _backend(name):
+    o = torch.backends
+    for part in filter(None, name.split(".")):
+        o = getattr(o, part)
+    return o
+
+
+@pytest.fixture(params=["allow_tf32", "fp32_precision"])
+def tf32_api(request, dev):
+    """TF32 switched on through the legacy flags, or through PyTorch's
+    newer per-backend strings (torch.backends.fp32_precision = 'tf32',
+    under which the legacy flags can no longer be read), for one test;
+    every flag restored after. Yields (device, api)."""
+    if request.param == "allow_tf32":
+        saved = torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        yield dev, request.param
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        return
+    saved = {n: _backend(n).fp32_precision for n in FP32_PRECISION}
+    # a parent's string reaches only children left at 'none': `dev` set
+    # cuda.matmul through the legacy flag, so name both backends too
+    torch.backends.fp32_precision = "tf32"
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    torch.backends.cudnn.conv.fp32_precision = "tf32"
+    yield dev, request.param
+    for n, v in saved.items():
+        _backend(n).fp32_precision = v
+
+
+def _tf32_still_on(api) -> None:
+    """The global flags are left as the caller set them."""
+    if api == "allow_tf32":
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    else:
+        assert torch.backends.fp32_precision == "tf32"
+        assert torch.backends.cudnn.conv.fp32_precision == "tf32"
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+
+
+def test_predictor_is_float32_under_tf32_flags(tf32_api):
     """test_predictor_cuda_matches_cpu with TF32 switched on first: the
     same masks and poses within the same 5e-2 mm, and the global flags
     left as the caller set them."""
-    test_predictor_cuda_matches_cpu(tf32_on)
-    assert torch.backends.cudnn.allow_tf32
-    assert torch.backends.cuda.matmul.allow_tf32
+    dev, api = tf32_api
+    test_predictor_cuda_matches_cpu(dev)
+    _tf32_still_on(api)
 
 
-def test_run_validation_is_float32_under_tf32_flags(tf32_on):
-    test_run_validation_cuda_matches_cpu(tf32_on)
-    assert torch.backends.cudnn.allow_tf32
+def test_run_validation_is_float32_under_tf32_flags(tf32_api):
+    dev, api = tf32_api
+    test_run_validation_cuda_matches_cpu(dev)
+    _tf32_still_on(api)
 
 
 # ---------------------------------------------------------------------------
