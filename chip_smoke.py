@@ -103,7 +103,28 @@ non-zero:
     same files on the same prepared frame; (c) the same weights written
     in the reference's flax msgpack layout load to the same state dicts
     as the torch files;
-11. prints one JSON line of the kernels, then the result line.
+11. drives the view-sharded step (fvp_torch/parallel/) and the service's
+    multi-host flags on the card, at the bf16 image configuration and the
+    float32 heatmap one: K1's sum mode against its plain version (one view
+    and all five; view_mean of the five-view sum bit for bit the mean
+    mode's volume); (a) a (1, 1) mesh over NCCL in this process, FRAMES
+    frames with every launch count set to 0 just before: K1 in sum mode
+    and every kernel of the path ran, frame 0 bit for bit the unsharded
+    Predictor's, both latencies; (b) SHARD_RANKS spawned ranks sharing
+    the card over gloo on a (1, 5) mesh (one view and 2 of the 10 people a
+    rank), FRAMES frames each with the counts set to 0 just before:
+    every kernel of the path ran on every rank, the ranks agree, rank 0's
+    frame 0 against the unsharded frame (bf16: the unsharded HDN+JLN on
+    the same per-view heatmaps at the same gate, identical masks, within
+    SHARD_BF16_TOL_MM a person with the same voxel pick, a z pick flipped
+    only on a near-tie, as phase 7; float32: identical masks, within 5e-2
+    mm), the bytes
+    staged through host memory a frame and the latency, which is no
+    scaling figure; (c) `run_service` with a coordinator at one host
+    (spawned, COORD_FRAMES frames) and its inference process in this
+    process with the counts: frame 0 bit for bit a direct Predictor
+    call's;
+12. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
 for cuDNN convs and matmuls, so that the card's plain path and the float32
@@ -172,6 +193,11 @@ FUSE_POSE_TOL_MM = 1.0
 # 1.2e-2 of their scale apart).
 BF16_POSE_TOL_MM = 3.0
 BF16_TIE_RTOL = 2e-2
+# phase 11 (b): the 5-rank bf16 frame against the unsharded HDN+JLN on the
+# same per-view heatmaps, a person with the same voxel pick. Only the view
+# sum's order and P2PNet's batch (6 planes a rank against 30) differ, so
+# the float32 configuration's bound holds (2.6e-2 mm on frame 0).
+SHARD_BF16_TOL_MM = 5e-2
 # The eval phase: the held-out synthetic protocol of this config at full
 # width (5 views, 240x128 heatmaps rendered on the card with augmentation,
 # an 80x80x20 space, K = 10 in 64^3 cubes), EVAL_SCENES scenes at the
@@ -248,6 +274,13 @@ TRAIN_IMAGE_STEPS = 2
 # the results of either run taken as warm-up (cuDNN's first calls).
 SERVICE_FRAMES = 20
 SERVICE_WARMUP = 2
+# The sharded phase: ranks sharing the one card over gloo on a (1, 5)
+# mesh (one view and 2 of the 10 people a rank), the seconds they may take
+# to start, build and serve, and the frames of the service with a
+# coordinator.
+SHARD_RANKS = 5
+SHARD_TIMEOUT = 600.0
+COORD_FRAMES = 10
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -703,11 +736,18 @@ def main() -> int:
     service_launches, service_res = service_phase(K, state, bb_state, rig,
                                                   smi)
 
+    # 11. sharded serving: the view-sharded step and the service's
+    # multi-host flags
+    sharded_launches, sharded_res = sharded_phase(
+        K, state, bb_state, rig, smi, pred, frames, pred_bf16, img_frames,
+        rows)
+
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
              "bf16_image_path": bf16_launches, "eval_path": eval_launches,
-             "train_path": train_launches, "service_path": service_launches}
+             "train_path": train_launches, "service_path": service_launches,
+             **sharded_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage"):
@@ -742,6 +782,7 @@ def main() -> int:
                     "service_inprocess_latency_ms":
                         service_res["inprocess_latency_ms"],
                     "service_parts_ms": service_res["parts_ms"],
+                    "sharded": sharded_res,
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1418,7 +1459,7 @@ def launch_counts(K) -> dict:
         raise AssertionError("person_planes: layout and planes launches "
                              "differ")
     return {"stem": c["stem"], "deconv_stage": c["deconv_stage"],
-            "whole_sample": c["whole_sample"],
+            "whole_sample": c["whole_sample"] + c["whole_sample.sum"],
             "person_planes": c["person_planes"],
             "centernet": c["centernet"],
             "soft_argmax": c["soft_argmax"],
@@ -2383,9 +2424,10 @@ def service_phase(K, state, bb_state, rig, smi):
                                    for k, v in parts.items()}}
 
 
-def check_fused(got, ref, label, tol_mm: float = 5e-2) -> None:
-    """Fused poses (B, K, J, 5) of the card against the CPU's: identical
-    masks, finite, within tol_mm."""
+def check_fused(got, ref, label, tol_mm: float = 5e-2,
+                against: str = "card vs CPU") -> None:
+    """Fused poses (B, K, J, 5) of the card against the CPU's (or what
+    `against` names): identical masks, finite, within tol_mm."""
     import torch
 
     if not torch.equal(got[..., 0, 3] >= 0, ref[..., 0, 3] >= 0):
@@ -2394,7 +2436,7 @@ def check_fused(got, ref, label, tol_mm: float = 5e-2) -> None:
         raise AssertionError(f"{label}shape {tuple(got.shape)} or "
                              "non-finite")
     err = float((got - ref).abs().max())
-    log(f"{label}fused_poses {tuple(got.shape)}: card vs CPU max_abs_err "
+    log(f"{label}fused_poses {tuple(got.shape)}: {against} max_abs_err "
         f"{err:.3e} mm (tol {tol_mm:.0e} mm)")
     if not err <= tol_mm:
         raise AssertionError(f"{label}fused_poses differ between card and "
@@ -2452,6 +2494,509 @@ def profile_frames(pred, frames, n: int = 3, unit: str = "frame",
         log(f"  by kind, ms/{unit}: " + ", ".join(
             f"{g} {v / n / 1e3:.3f}" for g, v in sums.items())
             + f"; the card idle (the host's share) {idle:.1f}% of the wall")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: sharded serving
+# ---------------------------------------------------------------------------
+
+def sharded_phase(K, state, bb_state, rig, smi, pred, frames, pred_bf16,
+                  img_frames, rows):
+    """Phase 11: the view-sharded step (fvp_torch/parallel/) and the
+    service's multi-host flags on the card. (a) a (1, 1) mesh over NCCL in
+    this process; (b) SHARD_RANKS spawned ranks sharing the card over gloo
+    on a (1, 5) mesh; (c) the service with a coordinator at one host.
+    Returns (launches by path, numbers)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fvp_torch.parallel import make_mesh, make_sharded_eval_step
+    from fvp_torch.parallel.mesh import free_port, init_distributed
+
+    configs = (("bf16 image", pred_bf16, img_frames),
+               ("float32 heatmap", pred, frames))
+    log(f"sharded phase: {configs[0][0]} (FVPConfig() at compute_dtype="
+        f"'bfloat16', 5 views of 960x512, seeded ResNet-50) and "
+        f"{configs[1][0]} (FVPConfig(backbone=''), 5 views of 240x128 "
+        f"heatmaps); {FRAMES} frames each")
+    sum_mode_kernel(pred, frames[0], rows)
+
+    # (a) world 1 over NCCL: the sharded step against the unsharded
+    # Predictor, bit for bit, and both latencies in this call
+    backend = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    world1 = {}
+    try:
+        mesh = make_mesh(1, 1)
+        for label, p, fr in configs:
+            ref, ref_lat, _ = drive(p, fr, K)
+            step = make_sharded_eval_step(p, mesh)
+            outs, lat, launches = drive(
+                lambda x, step=step, p=p: step(x, p.rc), fr, K)
+            sums = K.all_kernels()["whole_sample.sum"].launches
+            log(f"sharded world 1 ({backend}), {label}: launches "
+                f"{launches}, K1 in sum mode {sums} of them")
+            expect_launches(launches, BF16_IMAGE_PATH if p is pred_bf16
+                            else HEATMAP_PATH, f"sharded world 1 {label}")
+            if sums != FRAMES:
+                raise AssertionError(f"K1 ran {sums} times in sum mode")
+            same = all(torch.equal(outs[0][k], ref[0][k])
+                       for k in ("fused_poses", "proposals", "mask"))
+            log(f"sharded world 1, {label}: frame 0 bitwise equal to the "
+                f"unsharded Predictor: {same}; "
+                f"{int(ref[0]['mask'].sum())} people above the gate")
+            if not same:
+                raise AssertionError(f"sharded world 1 {label}: differs "
+                                     "from the unsharded Predictor")
+            log_latency(f"sharded world 1 {label} frame latency on {smi}",
+                        lat)
+            log_latency(f"unsharded {label} frame latency on {smi}, the "
+                        "same call", ref_lat)
+            world1[label] = {"launches": launches,
+                             "ms": statistics.median(lat[WARMUP_FRAMES:]),
+                             "unsharded_ms": statistics.median(
+                                 ref_lat[WARMUP_FRAMES:]),
+                             "ref": ref[0]}
+    finally:
+        dist.destroy_process_group()
+
+    # (b) SHARD_RANKS ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    paths = {"state": os.path.join(tmp.name, "model.pth"),
+             "bb": os.path.join(tmp.name, "backbone.pth"),
+             "images": os.path.join(tmp.name, "images.npy"),
+             "heatmaps": os.path.join(tmp.name, "heatmaps.npy")}
+    torch.save(state, paths["state"])
+    torch.save(bb_state, paths["bb"])
+    np.save(paths["images"], np.stack(img_frames))
+    np.save(paths["heatmaps"], np.stack(frames))
+    # the bf16 ranks run the backbone on one image each: their reference
+    # is the unsharded HDN+JLN on the same per-view heatmaps
+    ref_bf16, hm1d_bf16 = per_view_reference(pred_bf16, img_frames[0])
+    refs = {configs[0][0]: ref_bf16,
+            configs[1][0]: world1[configs[1][0]]["ref"]}
+    cfgs = {configs[0][0]: pred_bf16.cfg, configs[1][0]: pred.cfg}
+    t0 = time.perf_counter()
+    res = run_shard_ranks(SHARD_RANKS, (paths, cfgs))
+    log(f"sharded {SHARD_RANKS} ranks (gloo, one card): spawned, built and "
+        f"served in {time.perf_counter() - t0:.1f} s")
+    tmp.cleanup()
+    ranks = {}
+    for label, p, fr in configs:
+        path = BF16_IMAGE_PATH if p is pred_bf16 else HEATMAP_PATH
+        for r in range(SHARD_RANKS):
+            got = res[r][label]
+            expect_launches(got["launches"], path,
+                            f"sharded rank {r} {label}")
+            if got["sum_launches"] != FRAMES:
+                raise AssertionError(f"rank {r}: K1 ran {got['sum_launches']}"
+                                     " times in sum mode")
+            log(f"sharded rank {r} {label}: launches {got['launches']}; "
+                f"staged {got['staged_per_frame'] / 1e6:.3f} MB a frame "
+                f"through host memory")
+        lat = res[0][label]["lat"]
+        log_latency(f"sharded {label}, {SHARD_RANKS} ranks on one card, "
+                    f"not a scaling figure ({smi}), rank 0", lat)
+        ref = refs[label]
+        out0 = {k: torch.as_tensor(v) for k, v in res[0][label]["out0"]
+                .items()}
+        for r in range(1, SHARD_RANKS):
+            if not all(np.array_equal(res[r][label]["out0"][k],
+                                      res[0][label]["out0"][k])
+                       for k in ("fused_poses", "proposals", "mask")):
+                raise AssertionError(f"rank {r} {label}: its output differs"
+                                     " from rank 0's")
+        if p is pred_bf16:
+            check_sharded_bf16(out0, ref, hm1d_bf16, pred_bf16)
+        else:
+            gate_clear(p, fr[0], f"sharded {label}")
+            check_fused(out0["fused_poses"], ref["fused_poses"].cpu(),
+                        f"sharded {SHARD_RANKS} ranks {label}: ", 5e-2,
+                        "rank 0 vs the unsharded frame")
+        ranks[label] = {"launches": res[0][label]["launches"],
+                        "ms": statistics.median(lat[WARMUP_FRAMES:]),
+                        "staged_mb": res[0][label]["staged_per_frame"]
+                        / 1e6}
+
+    # (c) the service with a coordinator at one host
+    svc_launches, svc = coordinator_service(K, state, bb_state, rig, smi)
+    return ({"sharded_world1_path": world1["bf16 image"]["launches"],
+             "sharded_world1_heatmap_path":
+                 world1["float32 heatmap"]["launches"],
+             "sharded_path": ranks["bf16 image"]["launches"],
+             "sharded_heatmap_path": ranks["float32 heatmap"]["launches"],
+             "coordinator_service_path": svc_launches},
+            {"world1_ms": {k: v["ms"] for k, v in world1.items()},
+             "world1_unsharded_ms": {k: v["unsharded_ms"]
+                                     for k, v in world1.items()},
+             "ranks_ms_not_a_scaling_figure": {k: v["ms"]
+                                               for k, v in ranks.items()},
+             "staged_mb_per_frame": {k: v["staged_mb"]
+                                     for k, v in ranks.items()},
+             "coordinator_service": svc})
+
+
+def sum_mode_kernel(pred, frame, rows) -> None:
+    """K1 in sum mode against its plain version at the shapes the sharded
+    step gives it: one view (a rank of the 5-rank mesh) and all five (the
+    world-1 mesh); view_mean of the five-view sum bit for bit the mean
+    mode's volume."""
+    import dataclasses
+
+    import torch
+
+    from fvp_torch.ops.kernels import sampler as ksamp
+    from fvp_torch.ops.sampling import view_mean
+
+    cfg, rc = pred.cfg, pred.rc
+    hm = torch.as_tensor(frame, device="cuda")
+    errs, times = [], {}
+    with torch.inference_mode():
+        for a, b in ((0, 1), (0, cfg.num_views)):
+            rcb = dataclasses.replace(
+                rc, whole_sample_px=rc.whole_sample_px[a:b])
+            x = hm[:, a:b].contiguous()
+            got = ksamp.whole_sample(x, rcb, cfg, view_sum=True)
+            ref = ksamp.whole_sample_plain(x, rcb, cfg, view_sum=True)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            errs.append(err)
+            ms = time_ms(lambda: ksamp.whole_sample(x, rcb, cfg,
+                                                    view_sum=True))
+            times[f"{b - a}_views"] = ms
+            log(f"whole_sample sum mode, views {a}..{b - 1}: max_abs_err="
+                f"{err:.3e} tol={1e-5 * (b - a):.1e} kernel_ms={ms:.4f}")
+            held("whole_sample sum mode", err, 1e-5 * (b - a))
+        same = torch.equal(view_mean(got, cfg.num_views),
+                           ksamp.whole_sample(hm, rc, cfg))
+    log(f"whole_sample: view_mean of the sum mode's 5-view volume bitwise "
+        f"equal to the mean mode's: {same}")
+    if not same:
+        raise AssertionError("whole_sample: sum mode + view_mean differs "
+                             "from the mean mode")
+    rows["whole_sample"].update(sum_mode_max_abs_err=max(errs),
+                                sum_mode_ms=times)
+
+
+def per_view_reference(pred, frame):
+    """The reference of phase 11 (b)'s bf16 ranks, which run the backbone
+    on their one view each: the unsharded HDN+JLN (`pred`'s model, gate
+    and weights) on the backbone's heatmaps of each view alone. Its gate
+    must pass at least two people and be clear (1e-4) of every detection
+    confidence. Batch 1 against batch 5 of the backbone (cuDNN's bf16
+    convs round otherwise) is printed as a reading. Returns the reference
+    output on the host and C2CNet's scores (K, Z) of its detection."""
+    import torch
+
+    from fvp_torch.engine.serve import float32_math
+
+    V = pred.cfg.num_views
+    with torch.inference_mode(), float32_math():
+        hm5 = pred.heatmaps(frame)
+        hm1 = torch.cat([pred.heatmaps(frame[:, v:v + 1]) for v in range(V)],
+                        dim=1)
+        d5, d1 = (pred.model.detect(h, pred.rc, pred.packed)
+                  for h in (hm5, hm1))
+        out = pred.model(hm1, pred.rc, pred.packed)
+    conf5, conf1 = (d["proposals"][0, :, 4].cpu() for d in (d5, d1))
+    log(f"bf16 backbone, each view alone against the 5 views at once (a "
+        f"reading): heatmaps max_abs_err "
+        f"{float((hm1 - hm5).abs().max()):.3e}, scale "
+        f"{float(hm5.abs().max()):.3e}; detection confidences, 5 at once "
+        f"{[round(float(c), 4) for c in conf5]}, one at a time "
+        f"{[round(float(c), 4) for c in conf1]} (max shift "
+        f"{float((conf5 - conf1).abs().max()):.3e})")
+    min_score = pred.cfg.min_score
+    passed = int((conf1 > min_score).sum())
+    gap = float((conf1 - min_score).abs().min())
+    log(f"sharded bf16 reference (the per-view heatmaps): {passed} "
+        f"detection confidences above min_score={min_score}, the closest "
+        f"{gap:.3e} from it")
+    if passed < 2 or gap <= 1e-4:
+        raise AssertionError("sharded bf16 reference: vacuous or fragile "
+                             "gate")
+    return ({k: out[k].cpu() for k in ("fused_poses", "proposals", "mask")},
+            d1["hm1d"][0].cpu())
+
+
+def gate_clear(pred, frame, label) -> None:
+    """The unsharded frame's detection confidences: at least two people
+    through the gate and none within 1e-4 of it."""
+    import torch
+
+    with torch.inference_mode():
+        hm = pred.heatmaps(frame) if pred.backbone is not None else \
+            torch.as_tensor(frame, device="cuda")
+        conf = pred.model.detect(hm, pred.rc, pred.packed)["proposals"][
+            0, :, 4].cpu()
+    min_score = pred.cfg.min_score
+    passed = int((conf > min_score).sum())
+    gap = float((conf - min_score).abs().min())
+    log(f"{label}: {passed} detection confidences above min_score="
+        f"{min_score}, the closest {gap:.3e} from it")
+    if passed < 2 or gap <= 1e-4:
+        raise AssertionError(f"{label}: vacuous or fragile gate")
+
+
+def check_sharded_bf16(got, ref, hm1d, pred) -> None:
+    """The 5-rank bf16 frame against the unsharded HDN+JLN on the same
+    per-view heatmaps (`per_view_reference`), phase 7's rule: identical
+    masks, the gate clear of both sides' confidences; each person with
+    the same voxel pick within SHARD_BF16_TOL_MM; a person whose pick
+    differs only in z where the reference's C2CNet scores `hm1d` (K, Z)
+    at the two picks are a near-tie."""
+    import torch
+
+    min_score = pred.cfg.min_score
+    gap = float(torch.minimum(
+        (got["proposals"][0, :, 4] - min_score).abs(),
+        (ref["proposals"][0, :, 4] - min_score).abs()).min())
+    if gap <= 1e-4:
+        raise AssertionError(f"sharded bf16: a confidence {gap} from "
+                             f"min_score")
+    if not torch.equal(got["mask"], ref["mask"]):
+        raise AssertionError("sharded bf16: masks differ from the "
+                             "unsharded frame's")
+    if not torch.isfinite(got["fused_poses"]).all():
+        raise AssertionError("sharded bf16: non-finite poses")
+    scale, bias = (t.cpu() for t in pred.rc.voxel_to_mm)
+    same = (got["proposals"][0, :, :3] == ref["proposals"][0, :, :3]) \
+        .all(dim=-1)
+    flips = []
+    for k in torch.nonzero(~same).flatten().tolist():
+        z = int(torch.round((got["proposals"][0, k, 2] - bias[2])
+                            / scale[2]))
+        xy_same = bool((got["proposals"][0, k, :2]
+                        == ref["proposals"][0, k, :2]).all())
+        tie = float(hm1d[k].max() - hm1d[k, z])
+        s = float(hm1d[k].abs().max())
+        flips.append((k, int(hm1d[k].argmax()), z, tie / s))
+        if not (xy_same and tie <= BF16_TIE_RTOL * s):
+            raise AssertionError(f"sharded bf16 person {k}: voxel picks "
+                                 f"differ beyond a z near-tie")
+    kept = same & got["mask"][0]
+    if int(kept.sum()) < 2:
+        raise AssertionError("sharded bf16: fewer than two kept people "
+                             "with the same voxel pick")
+    err = (got["fused_poses"][0, :, :, :3] - ref["fused_poses"][0, :, :, :3]
+           ).norm(dim=-1).amax(dim=-1)[kept]
+    log(f"sharded {SHARD_RANKS} ranks bf16 image fused_poses: "
+        f"{int(kept.sum())} of {int(got['mask'].sum())} kept people with "
+        f"the same voxel pick as the unsharded frame on the same heatmaps, "
+        f"joint distance max {float(err.max()):.3e} mm (tol "
+        f"{SHARD_BF16_TOL_MM} mm), per person "
+        f"{[round(float(e), 5) for e in err]}; z picks that differ on a "
+        f"near-tie (person, unsharded z, sharded z, gap / scale): {flips}")
+    if not float(err.max()) <= SHARD_BF16_TOL_MM:
+        raise AssertionError("sharded bf16 fused_poses differ from the "
+                             "unsharded frame's")
+
+
+def run_shard_ranks(world: int, args: tuple) -> dict:
+    """`sharded_rank(rank, world, coordinator, *args)` in `world` spawned
+    processes: {rank: result}. Raises with a rank's traceback if one
+    failed; kills every rank still running after SHARD_TIMEOUT s."""
+    import multiprocessing as mp
+    import queue
+
+    from fvp_torch.parallel.mesh import free_port
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, coordinator, *args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    res, deadline = {}, time.monotonic() + SHARD_TIMEOUT
+    try:
+        while len(res) < world and time.monotonic() < deadline:
+            try:
+                rank, got = q.get(timeout=1.0)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            if isinstance(got, str):
+                raise AssertionError(f"sharded rank {rank} failed:\n{got}")
+            res[rank] = got
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if len(res) < world:
+        raise AssertionError(f"sharded ranks: {world - len(res)} of {world} "
+                             f"gave no result (exit codes "
+                             f"{[p.exitcode for p in procs]})")
+    return res
+
+
+def sharded_rank(rank, world, coordinator, paths, cfgs, q) -> None:
+    """Phase 11 (b), one rank: joins the gloo job on the card (the ranks
+    share it), builds each configuration's Predictor from the saved
+    weights, and takes FRAMES sharded steps on its block of each frame
+    with every launch count set to 0 just before; sends its counts,
+    latencies, staged bytes and frame 0's output."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    import fvp_torch.ops.kernels as K
+    from fvp_torch.engine.serve import Predictor
+    from fvp_torch.geometry.cameras import default_ring_rig
+    from fvp_torch.parallel import (make_mesh, make_sharded_eval_step,
+                                    shard_batch)
+    from fvp_torch.parallel.mesh import init_distributed
+
+    try:
+        backend = init_distributed(coordinator, world, rank, "cuda:0",
+                                   local_ranks=world)
+        if backend != "gloo":
+            raise AssertionError(f"ranks sharing a card got {backend}")
+        mesh = make_mesh(1, world)
+        state = torch.load(paths["state"])
+        bb = torch.load(paths["bb"])
+        out = {}
+        for label, cfg in cfgs.items():
+            image = cfg.compute_dtype == "bfloat16"
+            frames = np.load(paths["images" if image else "heatmaps"])
+            rig = default_ring_rig(cfg.num_views, cfg.space_center,
+                                   cfg.ori_image_size)
+            pred = Predictor.from_state_dict(
+                cfg, state, rig, device="cuda",
+                backbone_state_dict=bb if image else None)
+            step = make_sharded_eval_step(pred, mesh)
+            K.reset_launches()
+            mesh.staged_bytes = 0
+            lat, outs = [], []
+            for i in range(FRAMES):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs.append(step(shard_batch(mesh, frames[i % len(frames)]),
+                                 pred.rc))
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+            out[label] = {
+                "launches": launch_counts(K),
+                "sum_launches": K.all_kernels()["whole_sample.sum"].launches,
+                "lat": lat, "staged_per_frame": mesh.staged_bytes / FRAMES,
+                "out0": {k: v.cpu().numpy() for k, v in outs[0].items()}}
+        q.put((rank, out))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def coordinator_service(K, state, bb_state, rig, smi):
+    """Phase 11 (c): the service with --coordinator at one host, at the
+    service's bf16 image configuration. (c1) run_service as users run it
+    (spawned processes, COORD_FRAMES frames); (c2) its inference process
+    in this process on COORD_FRAMES seeded frames with every launch count
+    set to 0 just before: frame 0's poses bit for bit a direct Predictor
+    call's. Returns (launches of (c2), numbers)."""
+    import os
+    import queue
+    import tempfile
+
+    import torch
+
+    from fvp_torch.config import FVPConfig
+    from fvp_torch.engine.checkpoint import (load_backbone_state,
+                                             load_model_state)
+    from fvp_torch.engine.serve import Predictor
+    from fvp_torch.parallel.mesh import free_port
+    from fvp_torch.service import pipeline
+    from fvp_torch.service.sources import SPAWN, FrameQueue
+
+    tmp = tempfile.TemporaryDirectory()
+    model_pth = os.path.join(tmp.name, "model_best.pth")
+    bb_pth = os.path.join(tmp.name, "pose_resnet50.pth")
+    torch.save(state, model_pth)
+    torch.save(bb_state, bb_pth)
+    cfg = FVPConfig(min_score=MIN_SCORE_BF16, compute_dtype="bfloat16",
+                    pretrained_backbone=bb_pth)
+
+    # (c1) run_service --coordinator 127.0.0.1:<free> --num_hosts 1
+    sink = SPAWN.Queue()
+    t0 = time.perf_counter()
+    died = pipeline.run_service(pipeline.ServiceConfig(
+        checkpoint=model_pth, num_views=cfg.num_views,
+        max_frames=COORD_FRAMES, view_mode="none", on_result=Collect(sink),
+        cfg_obj=cfg, device="cuda", coordinator=f"127.0.0.1:{free_port()}",
+        num_hosts=1, host_id=0))
+    wall = time.perf_counter() - t0
+    got = []
+    while True:
+        try:
+            got.append(sink.get(timeout=1.0))
+        except queue.Empty:
+            break
+    if died is not None or not got:
+        raise AssertionError(f"coordinator service: died {died}, "
+                             f"{len(got)} results")
+    lat = sorted((r["timestamp"], r["latency_ms"]) for r in got)
+    lat = [x for _, x in lat]
+    log(f"service with --coordinator, one host (run_service, spawned) on "
+        f"{smi}: stopped by itself after {COORD_FRAMES} frames in "
+        f"{wall:.1f} s, no child died; {len(got)} results; latency_ms "
+        f"median {statistics.median(lat[SERVICE_WARMUP:] or lat):.3f} "
+        f"(first {SERVICE_WARMUP} excluded)")
+
+    # (c2) its inference process here, with the launch counts
+    rng = np.random.RandomState(12)
+    w, h = cfg.image_size
+    frames = [[rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+               for _ in range(cfg.num_views)] for _ in range(COORD_FRAMES)]
+    frame_q = FrameQueue(maxsize=COORD_FRAMES)
+    result_q = FrameQueue(maxsize=COORD_FRAMES)
+    for q in (frame_q, result_q):
+        q.q.cancel_join_thread()     # a failure must not hang the exit
+    for i, views in enumerate(frames):
+        frame_q.put((float(i), views))
+    svc = pipeline.ServiceConfig(
+        checkpoint=model_pth, num_views=cfg.num_views,
+        max_frames=COORD_FRAMES, view_mode="none", cfg_obj=cfg,
+        device="cuda", coordinator=f"127.0.0.1:{free_port()}", num_hosts=1,
+        host_id=0)
+    K.reset_launches()
+    pipeline.inference_process(svc, frame_q, result_q, SPAWN.Value("i", 0))
+    torch.cuda.synchronize()
+    launches = launch_counts(K)
+    sums = K.all_kernels()["whole_sample.sum"].launches
+    results = [result_q.get(timeout=10.0) for _ in range(COORD_FRAMES)]
+    log(f"coordinator service inference process: {COORD_FRAMES} frames, "
+        f"launches {launches}, K1 in sum mode {sums} of them")
+    expect_launches(launches, BF16_IMAGE_PATH, "coordinator service path")
+    if sums != COORD_FRAMES:
+        raise AssertionError(f"K1 ran {sums} times in sum mode")
+    in_lat = [r["latency_ms"] for r in results]
+    log_latency(f"coordinator service inference process latency_ms on "
+                f"{smi}", in_lat)
+    pred = Predictor.from_state_dict(
+        cfg, load_model_state(model_pth), rig, device="cuda",
+        backbone_state_dict=load_backbone_state(bb_pth))
+    ref = pred(pipeline._frames_to_images(cfg, frames[0]))["fused_poses"]
+    ref = ref[0].cpu().numpy()
+    got0 = results[0]["poses"]
+    same = got0.shape == ref.shape and np.array_equal(got0, ref)
+    log(f"coordinator service frame 0 poses {got0.shape} against "
+        f"Predictor(prepare(frame 0)): bitwise equal {same}; "
+        f"{int((ref[:, 0, 3] >= 0).sum())} people above the gate")
+    if not same or not np.isfinite(got0).all():
+        raise AssertionError("coordinator service: frame 0's poses differ "
+                             "from a direct Predictor call")
+    tmp.cleanup()
+    return launches, {"latency_ms": lat, "inprocess_latency_ms": in_lat}
 
 
 def _leaves(tree):

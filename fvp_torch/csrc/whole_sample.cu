@@ -37,7 +37,8 @@ constexpr int kThreads = 256;
 template <int J>
 __global__ void __launch_bounds__(kThreads)
 whole_sample_kernel(const float* __restrict__ hm, const float* __restrict__ px,
-                    float* __restrict__ out, int V, int H, int W, int N) {
+                    float* __restrict__ out, int V, int H, int W, int N,
+                    bool view_sum) {
   __shared__ float stage[kThreads * J];
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * kThreads, n = n0 + threadIdx.x;
@@ -73,7 +74,8 @@ whole_sample_kernel(const float* __restrict__ hm, const float* __restrict__ px,
     }
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      stage[threadIdx.x * J + j] = fvp::clampf(acc[j] / (float)V, 0.f, 1.f);
+      stage[threadIdx.x * J + j] =
+          view_sum ? acc[j] : fvp::clampf(acc[j] / (float)V, 0.f, 1.f);
   }
   __syncthreads();
   // the block's rows are out[b, n0 .. n0+count, :]: one contiguous run
@@ -93,19 +95,19 @@ whole_sample_kernel(const float* __restrict__ hm, const float* __restrict__ px,
 }  // namespace
 
 // hm (B, V, J, H, W); px (V, 2, N); out (B, N, J), N = nx*ny*nz x-major.
-// J is 15 or 17.
+// J is 15 or 17. view_sum != 0 writes the view sum (no mean, no clamp).
 FVP_API int fvp_whole_sample(const float* hm, const float* px, float* out,
                              int B, int V, int J, int H, int W, int N,
-                             void* stream) {
+                             int view_sum, void* stream) {
   if (B <= 0 || N <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kThreads - 1) / kThreads, B);
   cudaStream_t st = (cudaStream_t)stream;
   if (J == 15)
     whole_sample_kernel<15><<<grid, kThreads, 0, st>>>(hm, px, out, V, H, W,
-                                                       N);
+                                                       N, view_sum != 0);
   else if (J == 17)
     whole_sample_kernel<17><<<grid, kThreads, 0, st>>>(hm, px, out, V, H, W,
-                                                       N);
+                                                       N, view_sum != 0);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -111,12 +111,19 @@ class FasterVoxelPose(nn.Module):
         input, the proposals' z-columns (B*K, Z, J). In train mode
         CenterNet and C2CNet run as their modules, and with `meta` the
         proposals are matched to its people."""
+        volumes = whole_sample(heatmaps, rc, self.cfg)       # (B, X, Y, Z, J)
+        return self.propose(volumes, rc, packed, train, meta)
+
+    def propose(self, volumes, rc: RigConstants, packed: dict | None,
+                train: bool = False, meta: dict | None = None) -> dict:
+        """`detect` from the whole-space volumes (B, X, Y, Z, J) on: the
+        view-sharded step enters here with a volume whose view mean it
+        reduced over ranks (parallel/sharding.py)."""
         cfg = self.cfg
-        B = heatmaps.shape[0]
+        B = volumes.shape[0]
         K = cfg.max_people
         nx, ny, nz = cfg.voxels_per_axis
 
-        volumes = whole_sample(heatmaps, rc, cfg)            # (B, X, Y, Z, J)
         if train:
             hm2d, bbox_map = self.pose_net.center_net(volumes)
         else:
@@ -228,6 +235,22 @@ class FasterVoxelPose(nn.Module):
         z = z_w[:, :, :1] * xz[:, :, 1:] + z_w[:, :, 1:] * yz[:, :, 1:]
         return torch.cat([x, y, z], dim=2)
 
+    @staticmethod
+    def finish(proposals, fused, jln_confs) -> dict:
+        """forward's tail on the HDN's proposals (B, K, 7) and the JLN's
+        fused poses (B, K, J, 3) and scores (B, K): unmatched people are
+        zeroed, matched ones take the JLN score. Returns fused_poses (B, K,
+        J, 5), the scored proposals and the mask (B, K)."""
+        B, K, J = fused.shape[:3]
+        mask = proposals[..., 3] >= 0                        # (B, K)
+        fused = fused * mask[..., None, None].to(fused.dtype)
+        proposals = proposals.clone()
+        proposals[..., 4] = torch.where(mask, jln_confs.detach(),
+                                        proposals[..., 4])
+        tail = proposals[:, :, None, 3:5].expand(B, K, J, 2)
+        return {"fused_poses": torch.cat([fused, tail], dim=3),
+                "proposals": proposals, "mask": mask}
+
     # ------------------------------------------------------------------
     def forward(self, heatmaps, rc: RigConstants, packed: dict | None = None,
                 train: bool = False, meta: dict | None = None):
@@ -241,29 +264,14 @@ class FasterVoxelPose(nn.Module):
                              f"{'train' if self.training else 'eval'} mode")
         if not train and packed is None:
             raise ValueError("the eval forward needs the packed weights")
-        cfg = self.cfg
-        B = heatmaps.shape[0]
-        J = cfg.num_joints
-
         det = self.detect(heatmaps, rc, packed, train, meta)
-        proposals = det["proposals"]
-        mask = proposals[..., 3] >= 0                        # (B, K)
-        fused, planes, jln_confs = self.localize(heatmaps, rc, proposals,
-                                                 packed, train)
-
-        # unmatched people are zeroed; matched ones take the JLN score
-        fmask = mask[..., None, None].to(fused.dtype)
-        fused = fused * fmask
-        planes = planes * fmask[None]
-        proposals = proposals.clone()
-        proposals[..., 4] = torch.where(mask, jln_confs.detach(),
-                                        proposals[..., 4])
-        tail = proposals[:, :, None, 3:5].expand(B, proposals.shape[1], J, 2)
+        fused, planes, jln_confs = self.localize(
+            heatmaps, rc, det["proposals"], packed, train)
+        out = self.finish(det["proposals"], fused, jln_confs)
+        fmask = out["mask"][..., None, None].to(planes.dtype)
         return {
-            "fused_poses": torch.cat([fused, tail], dim=3),
-            "plane_poses": planes,
-            "proposals": proposals,
-            "mask": mask,
+            **out,
+            "plane_poses": planes * fmask[None],
             "hm2d": det["hm2d"],
             "hm1d": det["hm1d"],
             "bbox_flat": det["bbox_flat"],

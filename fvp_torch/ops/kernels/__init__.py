@@ -88,8 +88,9 @@ def all_kernels() -> dict[str, Kernel]:
     from fvp_torch.ops.kernels import hourglass, sampler, softargmax, stem
     from fvp_torch.ops.kernels import trunk, weightnet
     ks = [stem.STEM, deconv_head.DECONV, sampler.WHOLE_SAMPLE,
-          sampler.PERSON_LAYOUT, sampler.PERSON_PLANES, centernet.CENTERNET,
-          softargmax.SOFT_ARGMAX, weightnet.WEIGHTNET_POOL,
+          sampler.WHOLE_SAMPLE_SUM, sampler.PERSON_LAYOUT,
+          sampler.PERSON_PLANES, centernet.CENTERNET, softargmax.SOFT_ARGMAX,
+          weightnet.WEIGHTNET_POOL,
           hourglass.CONV.wgmma, hourglass.CONV.wmma, hourglass.POOL, c2cnet.C2C,
           trunk.CONV.wgmma, trunk.CONV.wmma]
     return {k.name: k for k in ks}

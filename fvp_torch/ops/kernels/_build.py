@@ -26,7 +26,7 @@ FLAGS = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers, ints, floats, stream)
 SIGNATURES = {
-    "fvp_whole_sample": [_P, _P, _P] + [_I] * 6 + [_P],
+    "fvp_whole_sample": [_P, _P, _P] + [_I] * 7 + [_P],
     "fvp_person_layout": [_P, _P] + [_I] * 5 + [_P],
     "fvp_person_planes": [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
     "fvp_centernet": [_P] * 5 + [_I] * 5 + [_P],

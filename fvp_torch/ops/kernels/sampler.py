@@ -24,6 +24,8 @@ from fvp_torch.ops.sampling import (
 )
 
 WHOLE_SAMPLE = Kernel("whole_sample", "fvp_whole_sample")
+# the same kernel in sum mode (the view-sharded step), counted apart
+WHOLE_SAMPLE_SUM = Kernel("whole_sample.sum", "fvp_whole_sample")
 PERSON_LAYOUT = Kernel("person_planes.layout", "fvp_person_layout")
 PERSON_PLANES = Kernel("person_planes", "fvp_person_planes")
 TILE_X = 16              # x values a thread of person_planes loops over
@@ -34,18 +36,24 @@ TILE_X = 16              # x values a thread of person_planes loops over
 # --------------------------------------------------------------------------
 
 def whole_sample_plain(heatmaps: torch.Tensor, rc: RigConstants,
-                       cfg: FVPConfig) -> torch.Tensor:
-    """(B, V, J, H, W) -> (B, nx, ny, nz, J) whole-space volumes."""
-    return torch.stack([project_whole(h, rc, cfg) for h in heatmaps])
+                       cfg: FVPConfig, view_sum: bool = False
+                       ) -> torch.Tensor:
+    """(B, V, J, H, W) -> (B, nx, ny, nz, J) whole-space volumes (view
+    sums with `view_sum`)."""
+    return torch.stack([project_whole(h, rc, cfg, view_sum)
+                        for h in heatmaps])
 
 
 def whole_sample(heatmaps: torch.Tensor, rc: RigConstants,
-                 cfg: FVPConfig) -> torch.Tensor:
+                 cfg: FVPConfig, view_sum: bool = False) -> torch.Tensor:
     """(B, V, J, H, W) heatmaps -> (B, nx, ny, nz, J) volumes in [0, 1]:
     bilinear sample of every view at rc.whole_sample_px, view mean,
-    clamp."""
+    clamp. With `view_sum` (sum mode), the float32 sum over the V views
+    given, unnormalised and unclamped: rc.whole_sample_px then holds those
+    views' coords (a slice of the rig's first axis), and
+    ops/sampling.py::view_mean of the parts' sum is the volume."""
     if not heatmaps.is_cuda:
-        return whole_sample_plain(heatmaps, rc, cfg)
+        return whole_sample_plain(heatmaps, rc, cfg, view_sum)
     B, V, J, H, W = heatmaps.shape
     nx, ny, nz = cfg.voxels_per_axis
     N = nx * ny * nz
@@ -57,8 +65,9 @@ def whole_sample(heatmaps: torch.Tensor, rc: RigConstants,
           device=heatmaps.device)
     out = torch.empty((B, nx, ny, nz, J), dtype=torch.float32,
                       device=heatmaps.device)
-    WHOLE_SAMPLE(ptr(heatmaps), ptr(rc.whole_sample_px), ptr(out),
-                 B, V, J, H, W, N)
+    (WHOLE_SAMPLE_SUM if view_sum else WHOLE_SAMPLE)(
+        ptr(heatmaps), ptr(rc.whole_sample_px), ptr(out), B, V, J, H, W, N,
+        int(view_sum))
     return out
 
 

@@ -58,14 +58,28 @@ def bilinear_sample(heatmap: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def view_mean(total: torch.Tensor, num_views: int) -> torch.Tensor:
+    """A volume's view sum -> its values: divided by the view count and
+    clamped to [0, 1], the operations of K1's mean mode. The divisor is a
+    tensor on the sum's device: PyTorch divides a CUDA tensor by a host
+    scalar as a product with its reciprocal, which can differ by an ulp."""
+    return torch.clamp(total / total.new_full((), float(num_views)),
+                       0.0, 1.0)
+
+
 def project_whole(heatmaps: torch.Tensor, rc: RigConstants,
-                  cfg: FVPConfig) -> torch.Tensor:
+                  cfg: FVPConfig, view_sum: bool = False) -> torch.Tensor:
     """Aggregate (V, J, H, W) view heatmaps into the whole-space volume
-    (nx, ny, nz, J), values clamped to [0, 1]."""
+    (nx, ny, nz, J), values clamped to [0, 1]. With `view_sum`, the sum
+    over these views instead, unnormalised and unclamped (a rank's part of
+    a volume whose views are spread over ranks); `view_mean` of the parts'
+    sum is then the volume."""
     px = rc.whole_sample_px
     sampled = torch.stack([bilinear_sample(heatmaps[v], px[v, 0], px[v, 1])
                            for v in range(heatmaps.shape[0])])
-    volume = torch.clamp(sampled.mean(dim=0), 0.0, 1.0)   # (J, nbins)
+    volume = sampled.sum(dim=0)                           # (J, nbins)
+    if not view_sum:
+        volume = view_mean(volume, heatmaps.shape[0])
     nx, ny, nz = cfg.voxels_per_axis
     return volume.reshape(heatmaps.shape[1], nx, ny, nz).permute(1, 2, 3, 0)
 

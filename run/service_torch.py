@@ -7,9 +7,16 @@ rtsp://...` (omit --rtsp_url for the synthetic test source). It serves on
 process raises and the CLI exits 1, as it does whenever a child process
 died. `python run/service_torch.py --device cpu --max_frames 5
 --view_mode none` drives the whole topology on the host. The arguments
-are the reference package's run/service.py's, with --device; multi-host
-serving is not ported, so --coordinator raises (--num_hosts and
---host_id do nothing without it). See fvp_torch/service/pipeline.py.
+are the reference package's run/service.py's, with --device. Where the
+host has several devices (cards, or FVP_CPU_DEVICES on the CPU) the
+camera axis shards over them; across hosts, run one service per host
+with the same --coordinator (host 0's ip:port) and --num_hosts, each with
+its --host_id:
+
+    python run/service_torch.py --coordinator 10.0.0.1:8477 \
+        --num_hosts 2 --host_id {0,1} ...
+
+See fvp_torch/service/pipeline.py.
 """
 
 from __future__ import annotations
@@ -52,11 +59,12 @@ def main(argv=None) -> int:
     parser.add_argument("--restream_url", default="",
                         help="rtsp:// publish target for --view_mode rtsp")
     parser.add_argument("--coordinator", default="",
-                        help="multi-host serving: not ported (raises)")
-    parser.add_argument("--num_hosts", type=int, default=1,
-                        help="multi-host serving: not ported")
-    parser.add_argument("--host_id", type=int, default=0,
-                        help="multi-host serving: not ported")
+                        help="multi-host serving: host 0's ip:port; run "
+                             "one service per host with the same "
+                             "coordinator; the view axis shards over every "
+                             "host's ranks")
+    parser.add_argument("--num_hosts", type=int, default=1)
+    parser.add_argument("--host_id", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a card) or "
                              "'cpu' for the plain path")
@@ -75,6 +83,8 @@ def main(argv=None) -> int:
         restream_url=args.restream_url,
         on_result=on_result,
         coordinator=args.coordinator,
+        num_hosts=args.num_hosts,
+        host_id=args.host_id,
         device=args.device,
     ))
     return 0 if died is None else 1

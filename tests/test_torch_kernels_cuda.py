@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
-shapes chip_smoke.py does not reach: 17 joints, 16- and 32-voxel cubes,
+shapes chip_smoke.py does not reach: K1's sum mode on blocks of views, 17
+joints, 16- and 32-voxel cubes,
 dead and unmatched persons, batches of two, odd pyramid widths, ragged
 stem and deconv tiles, a 2048-channel deconv input; for the bf16 conv
 kernels every op and width of P2PNet and the bottleneck stage at ragged
@@ -114,6 +115,41 @@ def test_whole_sample_kernel(dev, J, B, voxels, outside):
     assert got.shape == (B, *voxels, J)
     # the same gather arithmetic; the view sum may contract into FMAs
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("J,blocks", [
+    (15, [(0, 1), (1, 2), (2, 3)]),   # one view a rank
+    (17, [(0, 2), (2, 3)]),
+])
+def test_whole_sample_kernel_sum_mode(dev, J, blocks):
+    """K1's sum mode on blocks of the views, as ranks of a view group run
+    it, against its plain version (values up to V: 1e-5 a view); the
+    blocks' sum through view_mean against the mean mode (within the
+    summation order); and all views in one block through view_mean bit
+    for bit equal to the mean mode (the same IEEE division and clamp)."""
+    import dataclasses
+
+    from fvp_torch.ops.sampling import view_mean
+
+    cfg = _cfg(J, 16)
+    _, _, rc, hm = _inputs(cfg, dev, B=2)
+    hm = hm * 1.4                            # the clamp bites
+    mean = ksamp.whole_sample(hm, rc, cfg)
+    parts = []
+    for a, b in blocks:
+        rcb = dataclasses.replace(rc, whole_sample_px=rc.whole_sample_px[a:b])
+        x = hm[:, a:b].contiguous()
+        before = ksamp.WHOLE_SAMPLE_SUM.launches
+        got = ksamp.whole_sample(x, rcb, cfg, view_sum=True)
+        assert ksamp.WHOLE_SAMPLE_SUM.launches == before + 1
+        ref = ksamp.whole_sample_plain(x, rcb, cfg, view_sum=True)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * (b - a))
+        parts.append(got)
+    assert float(max(p.max() for p in parts)) > 1.0   # unclamped
+    torch.testing.assert_close(view_mean(sum(parts), 3), mean, rtol=0,
+                               atol=1e-6)
+    whole = ksamp.whole_sample(hm, rc, cfg, view_sum=True)
+    assert torch.equal(view_mean(whole, 3), mean)
 
 
 def _crosses_edge(cfg, rc, corner):
@@ -390,11 +426,14 @@ def test_wrappers_reject_bad_cuda_input(dev):
 
 
 # kernels the default heatmap path does not launch: the backbone's, the
-# fuse_p2p path's and the bottleneck stage (the bf16 image path's layer1)
+# fuse_p2p path's, the bottleneck stage (the bf16 image path's layer1) and
+# K1 in sum mode (the view-sharded step's)
 _FUSE_ONLY = ("p2pnet.conv.wgmma", "p2pnet.conv.wmma", "p2pnet.pool",
               "c2cnet")
 _STAGE = ("bottleneck_stage.wgmma", "bottleneck_stage.wmma")
-_OFF_HEATMAP_PATH = ("stem", "deconv_stage") + _STAGE + _FUSE_ONLY
+_SHARDED = ("whole_sample.sum",)
+_OFF_HEATMAP_PATH = ("stem", "deconv_stage") + _STAGE + _FUSE_ONLY \
+    + _SHARDED
 
 
 def test_predictor_cuda_matches_cpu(dev):
@@ -450,7 +489,7 @@ def test_image_predictor_cuda_matches_cpu(dev):
     reset_launches()
     got = pred(images)
     counts = {n: k.launches for n, k in all_kernels().items()}
-    off = {n: counts.pop(n) for n in _FUSE_ONLY + _STAGE}
+    off = {n: counts.pop(n) for n in _FUSE_ONLY + _STAGE + _SHARDED}
     assert all(c > 0 for c in counts.values()), counts
     assert all(c == 0 for c in off.values()), off
     cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu",

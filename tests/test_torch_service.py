@@ -295,12 +295,6 @@ def test_run_service_end_to_end(monkeypatch, tmp_path):
     assert len(list(out.glob("pose_*.jpg"))) >= 1
 
 
-def test_run_service_multi_host_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        pipeline.run_service(pipeline.ServiceConfig(
-            coordinator="127.0.0.1:8477", device="cpu"))
-
-
 def test_service_cli_without_a_card_exits_1(tmp_path):
     """Without --device the inference child raises (no card); the
     watchdog stops the service and the CLI exits 1."""
