@@ -124,7 +124,34 @@ non-zero:
     (spawned, COORD_FRAMES frames) and its inference process in this
     process with the counts: frame 0 bit for bit a direct Predictor
     call's;
-12. prints one JSON line of the kernels, then the result line.
+12. drives the spatial ('data', 'space') pipeline mesh and the
+    data-parallel train step (fvp_torch/parallel/) on the card, at the
+    float32 heatmap configuration and phase 9's training batches: (a) a
+    (1, 1) pipeline mesh over NCCL in this process, FRAMES frames with
+    every launch count set to 0 just before: every kernel of the heatmap
+    path ran and frame 0 is bit for bit the unsharded Predictor's; (b)
+    SPATIAL_RANKS spawned ranks sharing the card over gloo on a (1, 4)
+    pipeline mesh (20 x-rows a rank), FRAMES frames each with the counts
+    set to 0 just before: K1 (on its rows), person_planes, soft_argmax and
+    weightnet_pool ran on every rank and centernet on none; each rank
+    holds K1's row block, person_planes, soft_argmax and weightnet_pool
+    against their plain versions on its tensors, spatial_centernet's maps
+    against the whole cuDNN module (within SPATIAL_CN_TOL) and
+    sharded_nms_topk_2d bit for bit against the whole-map NMS; rank 0's
+    frame 0 against the unsharded frame (identical masks, at least two
+    people through a gate clear of every confidence, within 5e-2 mm), the
+    bytes staged a rank a frame and rank 0's latency; (c) the sharded
+    train step on a (1, 1) mesh over NCCL, two steps with the counts set
+    to 0 just before, bit for bit Trainer.train_step (losses, parameters,
+    running statistics); (d) the sharded train step on a (2, 1) mesh of
+    two of (b)'s ranks, 4 scenes a rank, two steps with the counts set to
+    0 just before: K1 in sum mode and person_planes once a rank a step
+    and held against their plain versions, against (c)'s Trainer on the
+    same two steps (losses and running statistics after each, parameters
+    after both; tests/test_torch_train_lockstep.py's tolerances), the
+    step time and peak memory a rank; (c) and (d) start from the smoke's
+    seeded weights;
+13. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
 for cuDNN convs and matmuls, so that the card's plain path and the float32
@@ -280,6 +307,29 @@ SERVICE_WARMUP = 2
 # coordinator.
 SHARD_RANKS = 5
 SHARD_TIMEOUT = 600.0
+# phase 12: the pipeline mesh's ranks sharing the card ((1, 4): 20 x-rows a
+# rank), the data-parallel train step's mesh on two of them, the spatial
+# CenterNet against the whole cuDNN module (tests/test_spatial.py's 1e-5;
+# the halo convs sum over the same terms on smaller images), and the
+# sharded train step against the single Trainer after two steps, at
+# tests/test_torch_train_lockstep.py's tolerances (losses relative, the
+# first step and the later ones; parameters in lr per update, and the
+# share of entries more than 1 lr apart; running statistics after each
+# step against each tensor's largest entry, the first step and the later
+# ones, the later running means with 2 lr a update of room for the conv
+# biases before them, whose gradients are float32 noise)
+SPATIAL_RANKS = 4
+TRAIN_SHARDED_SHAPE = (2, 1)
+SPATIAL_CN_TOL = 1e-5
+SHARDED_TRAIN_LOSS_RTOL = (1e-5, 5e-4)
+SHARDED_TRAIN_LR_PER_UPDATE = 2.0
+# Adam's first update moves an entry by at most lr, so an entry whose
+# gradient's sign differs (float32 noise) lands 2 lr away exactly, up to
+# the float32 rounding of the two parameters (~1e-4 lr here): the bound
+# has that much room above 2 lr a update
+SHARDED_TRAIN_ROUNDING_LR = 1e-2
+SHARDED_TRAIN_FRAC_OVER_LR = 1e-2
+SHARDED_TRAIN_STATS_RTOL = (1e-5, 2e-3)
 COORD_FRAMES = 10
 # ImageNet normalisation of the reference data pipeline (RGB, 0..1 scale)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -742,12 +792,16 @@ def main() -> int:
         K, state, bb_state, rig, smi, pred, frames, pred_bf16, img_frames,
         rows)
 
+    # 12. the spatial pipeline mesh and the data-parallel train step
+    spatial_launches, spatial_res = spatial_phase(K, state, smi, pred,
+                                                  frames, train_res)
+
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
              "bf16_image_path": bf16_launches, "eval_path": eval_launches,
              "train_path": train_launches, "service_path": service_launches,
-             **sharded_launches}
+             **sharded_launches, **spatial_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage"):
@@ -783,6 +837,7 @@ def main() -> int:
                         service_res["inprocess_latency_ms"],
                     "service_parts_ms": service_res["parts_ms"],
                     "sharded": sharded_res,
+                    "spatial": spatial_res,
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2085,7 +2140,10 @@ def train_phase(K, smi):
                                  ds.rigs["synthetic"], smi)
     return counts, {"step_ms": step_ms, "step_ms_median": med,
                     "peak_gb": peak, "losses": losses,
-                    "image_step_ms": image_ms}
+                    "image_step_ms": image_ms,
+                    # for phase 12: the first two batches
+                    "batches": [b for _, b in batches[:2]], "cfg": cfg,
+                    "rig": ds.rigs["synthetic"]}
 
 
 def pre_bn_biases(model) -> set:
@@ -2795,10 +2853,11 @@ def check_sharded_bf16(got, ref, hm1d, pred) -> None:
                              "unsharded frame's")
 
 
-def run_shard_ranks(world: int, args: tuple) -> dict:
-    """`sharded_rank(rank, world, coordinator, *args)` in `world` spawned
-    processes: {rank: result}. Raises with a rank's traceback if one
-    failed; kills every rank still running after SHARD_TIMEOUT s."""
+def run_shard_ranks(world: int, args: tuple, target=None) -> dict:
+    """`target(rank, world, coordinator, *args)` (by default
+    `sharded_rank`) in `world` spawned processes: {rank: result}. Raises
+    with a rank's traceback if one failed; kills every rank still running
+    after SHARD_TIMEOUT s."""
     import multiprocessing as mp
     import queue
 
@@ -2807,7 +2866,7 @@ def run_shard_ranks(world: int, args: tuple) -> dict:
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     coordinator = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=sharded_rank,
+    procs = [ctx.Process(target=target or sharded_rank,
                          args=(r, world, coordinator, *args, q))
              for r in range(world)]
     for p in procs:
@@ -2997,6 +3056,505 @@ def coordinator_service(K, state, bb_state, rig, smi):
                              "from a direct Predictor call")
     tmp.cleanup()
     return launches, {"latency_ms": lat, "inprocess_latency_ms": in_lat}
+
+
+def spatial_phase(K, state, smi, pred, frames, train_res):
+    """Phase 12: the spatial pipeline mesh and the data-parallel train
+    step on the card. (a) and (c) on (1, 1) meshes over NCCL in this
+    process; (b) and (d) in one job of SPATIAL_RANKS spawned ranks sharing
+    the card over gloo, which builds the (1, 4) pipeline mesh and the
+    (2, 1) train mesh. Returns (launches by path, numbers)."""
+    import os
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.parallel import make_pipeline_mesh, make_spatial_eval_step
+    from fvp_torch.parallel.mesh import free_port, init_distributed
+
+    tcfg, batches = train_res["cfg"], train_res["batches"]
+    # the train steps start from the smoke's seeded weights, not phase 9's
+    # reference init: with its convs at std 0.001 the learning rate (1e-4)
+    # is a fifth of a weight, and an entry whose gradient's sign is float32
+    # noise on one side moves the next step's statistics by that much
+    init_state = random_state_dict(FasterVoxelPose(tcfg), seed=0)
+    log(f"spatial phase: the float32 heatmap configuration (80x80x20 "
+        f"space, 5 views, 15 joints, K = 10), {FRAMES} frames; the train "
+        f"phase's first {len(batches)} batches of {tcfg.batch_size}")
+    gate_clear(pred, frames[0], "spatial phase, the unsharded frame")
+    res = {}
+
+    # (a) a (1, 1) pipeline mesh and (c) a (1, 1) train mesh over NCCL
+    backend = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        mesh = make_pipeline_mesh(1, 1)
+        ref, ref_lat, _ = drive(pred, frames, K)
+        step = make_spatial_eval_step(pred, mesh)
+        outs, lat, spatial_w1 = drive(lambda x: step(x, pred.rc), frames, K)
+        log(f"spatial world 1 ({backend}): launches {spatial_w1}")
+        expect_launches(spatial_w1, HEATMAP_PATH, "spatial world 1")
+        same = all(torch.equal(outs[0][k], ref[0][k])
+                   for k in ("fused_poses", "proposals", "mask"))
+        log(f"spatial world 1: frame 0 bitwise equal to the unsharded "
+            f"Predictor: {same}; {int(ref[0]['mask'].sum())} people above "
+            f"the gate")
+        if not same:
+            raise AssertionError("spatial world 1 differs from the "
+                                 "unsharded Predictor")
+        log_latency(f"spatial world 1 frame latency on {smi}", lat)
+        log_latency(f"unsharded frame latency on {smi}, the same call",
+                    ref_lat)
+        res["world1_ms"] = statistics.median(lat[WARMUP_FRAMES:])
+        res["world1_unsharded_ms"] = statistics.median(
+            ref_lat[WARMUP_FRAMES:])
+        unsharded = {k: v.cpu() for k, v in ref[0].items()}
+        train_w1, single = sharded_train_world1(K, smi, tcfg, init_state,
+                                                batches, train_res["rig"])
+    finally:
+        dist.destroy_process_group()
+    res["train_world1_ms"] = single["sharded_ms"]
+
+    # (b) and (d): SPATIAL_RANKS ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    paths = {"inputs": os.path.join(tmp.name, "inputs.pkl")}
+    with open(paths["inputs"], "wb") as f:
+        pickle.dump({"state": state, "cfg": pred.cfg,
+                     "heatmaps": np.stack(frames), "tcfg": tcfg,
+                     "init_state": init_state, "batches": batches,
+                     "rig": train_res["rig"]}, f)
+    t0 = time.perf_counter()
+    ranks = run_shard_ranks(SPATIAL_RANKS, (paths,), target=spatial_rank)
+    log(f"spatial {SPATIAL_RANKS} ranks (gloo, one card): spawned, built, "
+        f"served and trained in {time.perf_counter() - t0:.1f} s")
+    tmp.cleanup()
+    spatial_path = check_spatial_ranks(ranks, unsharded, pred, smi, res)
+    train_path = check_train_ranks(ranks, single, tcfg, smi, res)
+    return ({"spatial_world1_path": spatial_w1,
+             "spatial_path": spatial_path,
+             "sharded_train_world1_path": train_w1,
+             "sharded_train_path": train_path}, res)
+
+
+def sharded_train_world1(K, smi, cfg, init_state, batches, rig):
+    """Phase 12 (c): two steps of the sharded train step on a (1, 1) mesh
+    with every launch count set to 0 just before, then two steps of a
+    Trainer from the same weights: losses, parameters and running
+    statistics bit for bit. cuDNN and PyTorch take their deterministic
+    algorithms for both runs (a scatter's atomics, or a cuDNN backward
+    algorithm that splits its sum, would add in another order from run to
+    run). Returns (launches, the single Trainer's results)."""
+    import torch
+
+    from fvp_torch.engine.train import Trainer, step_inputs
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.parallel import (make_mesh, make_sharded_train_step,
+                                    shard_batch, shard_data)
+
+    rc = build_rig_constants(cfg, rig).to("cuda")
+    trainers = []
+    for _ in range(2):
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(init_state)
+        trainers.append(Trainer(cfg, model, "cuda"))
+    mesh = make_mesh(1, 1)
+    step = make_sharded_train_step(trainers[0], mesh)
+    inputs = [step_inputs(b, "cuda") for b in batches]
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        K.reset_launches()
+        a, a_ms = [], []
+        for x, targets, meta in inputs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            a.append(step(shard_batch(mesh, x), rc, shard_data(mesh, targets),
+                          shard_data(mesh, meta)))
+            torch.cuda.synchronize()
+            a_ms.append((time.perf_counter() - t) * 1e3)
+        launches = launch_counts(K)
+        sums = K.all_kernels()["whole_sample.sum"].launches
+        b, b_ms, b_stats = [], [], []
+        for x, targets, meta in inputs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            b.append(trainers[1].train_step(x, rc, targets, meta))
+            torch.cuda.synchronize()
+            b_ms.append((time.perf_counter() - t) * 1e3)
+            b_stats.append(running_stats(trainers[1].model))
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1])
+    log(f"sharded train world 1 (nccl): {len(inputs)} steps, launches "
+        f"{launches}, K1 in sum mode {sums} of them")
+    expect_per_frame_n(launches, TRAIN_PATH, len(inputs),
+                       "sharded train world 1")
+    if sums != len(inputs):
+        raise AssertionError(f"K1 ran {sums} times in sum mode")
+    same_losses = all(torch.equal(x[k], y[k]) for x, y in zip(a, b)
+                      for k in x)
+    sa, sb = (t.model.state_dict() for t in trainers)
+    same_state = all(torch.equal(sa[k], sb[k]) for k in sa)
+    log(f"sharded train world 1: {len(inputs)} steps bitwise equal to "
+        f"Trainer.train_step: losses {same_losses}, parameters and running "
+        f"statistics {same_state}; step ms {[round(t, 2) for t in a_ms]} "
+        f"against {[round(t, 2) for t in b_ms]} on {smi} (deterministic "
+        f"algorithms)")
+    if not (same_losses and same_state):
+        raise AssertionError("sharded train world 1 differs from "
+                             "Trainer.train_step")
+    single = {"losses": [{k: float(v) for k, v in x.items()} for x in b],
+              "state": {k: v.detach().cpu() for k, v in sb.items()},
+              "stats": b_stats,
+              "updates": {"pose_net": trainers[1].hdn_updates,
+                          "joint_net": trainers[1].jln_updates},
+              "lr": cfg.lr, "sharded_ms": a_ms, "ms": b_ms}
+    return launches, single
+
+
+def running_stats(model) -> dict:
+    """The BatchNorms' running statistics of `model` as float64 numpy."""
+    return {k: v.detach().double().cpu().numpy()
+            for k, v in model.state_dict().items() if "running" in k}
+
+
+def expect_per_frame_n(counts, per_step, steps, what) -> None:
+    """Each kernel of `per_step` launched that many times a step over
+    `steps` steps, and no other kernel."""
+    for name, c in counts.items():
+        if c != per_step.get(name, 0) * steps:
+            raise AssertionError(f"{what}: {name} launched {c} times in "
+                                 f"{steps} steps")
+
+
+def check_spatial_ranks(ranks, unsharded, pred, smi, res) -> dict:
+    """Phase 12 (b) in the main process: every rank's launches (K1 on its
+    rows, person_planes, soft_argmax and weightnet_pool; centernet on
+    none), kernels, CenterNet and NMS checks, the ranks' agreement, and
+    rank 0's frame 0 against the unsharded frame. Returns rank 0's
+    launches."""
+    import torch
+
+    path = ("whole_sample", "person_planes", "soft_argmax",
+            "weightnet_pool")
+    for r in range(SPATIAL_RANKS):
+        got = ranks[r]["spatial"]
+        expect_launches(got["launches"], path, f"spatial rank {r}")
+        log(f"spatial rank {r}: launches {got['launches']}; staged "
+            f"{got['staged_per_frame'] / 1e6:.4f} MB a frame through host "
+            f"memory; rows {got['rows']}")
+        for name, (err, tol) in got["held"].items():
+            log(f"  spatial rank {r} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.1e}")
+            held(f"spatial rank {r} {name}", err, tol)
+        log(f"  spatial rank {r}: sharded_nms_topk_2d bitwise equal to the "
+            f"whole-map NMS: {got['nms_same']}; K1 on its rows "
+            f"{got['k1_ms']:.4f} ms (plain {got['k1_plain_ms']:.4f} ms)")
+        if not got["nms_same"]:
+            raise AssertionError(f"spatial rank {r}: sharded NMS differs")
+        if r and not all(np.array_equal(got["out0"][k],
+                                        ranks[0]["spatial"]["out0"][k])
+                         for k in got["out0"]):
+            raise AssertionError(f"spatial rank {r}: its output differs "
+                                 "from rank 0's")
+    r0 = ranks[0]["spatial"]
+    log_latency(f"spatial {SPATIAL_RANKS} ranks on one card, not a scaling "
+                f"figure ({smi}), rank 0", r0["lat"])
+    out0 = {k: torch.as_tensor(v) for k, v in r0["out0"].items()}
+    if not torch.equal(out0["mask"], unsharded["mask"]):
+        raise AssertionError("spatial: masks differ from the unsharded "
+                             "frame's")
+    check_fused(out0["fused_poses"], unsharded["fused_poses"],
+                f"spatial {SPATIAL_RANKS} ranks: ", 5e-2,
+                "rank 0 vs the unsharded frame")
+    res["ranks_ms_not_a_scaling_figure"] = statistics.median(
+        r0["lat"][WARMUP_FRAMES:])
+    res["staged_mb_per_frame"] = r0["staged_per_frame"] / 1e6
+    res["held"] = r0["held"]
+    return r0["launches"]
+
+
+def check_train_ranks(ranks, single, cfg, smi, res) -> dict:
+    """Phase 12 (d) in the main process: each train rank's launches (K1 in
+    sum mode and person_planes once a step), its kernels against their
+    plain versions, the ranks' agreement, and rank 0's losses and state
+    against the single Trainer of (c) after the same steps. Returns rank
+    0's launches."""
+    n = TRAIN_SHARDED_SHAPE[0] * TRAIN_SHARDED_SHAPE[1]
+    steps = len(single["losses"])
+    for r in range(n):
+        got = ranks[r]["train"]
+        expect_per_frame_n(got["launches"], TRAIN_PATH, steps,
+                           f"sharded train rank {r}")
+        if got["sum_launches"] != steps:
+            raise AssertionError(f"sharded train rank {r}: K1 ran "
+                                 f"{got['sum_launches']} times in sum mode")
+        log(f"sharded train rank {r} of {TRAIN_SHARDED_SHAPE} (gloo, one "
+            f"card, {cfg.batch_size // TRAIN_SHARDED_SHAPE[0]} scenes): "
+            f"launches {got['launches']}; step ms "
+            f"{[round(t, 2) for t in got['ms']]}; peak memory "
+            f"{got['peak_gb']:.3f} GB; staged {got['staged_mb']:.3f} MB a "
+            f"step on {smi}")
+        for name, (err, tol) in got["held"].items():
+            log(f"  sharded train rank {r} {name}: max_abs_err={err:.3e} "
+                f"tol={tol:.1e}")
+            held(f"sharded train rank {r} {name}", err, tol)
+        if r and (got["losses"] != ranks[0]["train"]["losses"] or not all(
+                np.array_equal(v, ranks[0]["train"]["state"][k])
+                for k, v in got["state"].items())):
+            raise AssertionError(f"sharded train rank {r} differs from "
+                                 "rank 0")
+    got = ranks[0]["train"]
+    worst_loss = []
+    for i, (a, b) in enumerate(zip(got["losses"], single["losses"])):
+        rtol = SHARDED_TRAIN_LOSS_RTOL[min(i, 1)]
+        err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+        worst_loss.append(err)
+        if err > rtol:
+            raise AssertionError(f"sharded train step {i}: losses {a} vs "
+                                 f"{b}")
+    worst_stats = []
+    for i, (a, b) in enumerate(zip(got["stats"], single["stats"])):
+        worst_stats.append(0.0)
+        for k, ref in b.items():
+            tol = SHARDED_TRAIN_STATS_RTOL[min(i, 1)] * float(
+                np.abs(ref).max())
+            if i and k.endswith("running_mean"):
+                # a conv bias before this BatchNorm has an exact gradient
+                # of 0: its Adam updates are float32 noise on each side,
+                # up to 2 lr apart an update, and the batch means the
+                # running mean takes move with it
+                tol += SHARDED_TRAIN_LR_PER_UPDATE * single["lr"] \
+                    * single["updates"][k.split(".")[0]]
+            e = float(np.abs(a[k] - ref).max()) / tol
+            worst_stats[i] = max(worst_stats[i], e)
+            if e > 1.0:
+                raise AssertionError(f"sharded train step {i} {k}: {e} of "
+                                     "its tolerance")
+    worst_lr, over, total = 0.0, 0, 0
+    for k, ref in single["state"].items():
+        g = np.asarray(got["state"][k], np.float64)
+        ref = ref.double().numpy()
+        if "num_batches" in k or "running" in k:
+            continue
+        d = np.abs(g - ref) / single["lr"]
+        worst_lr = max(worst_lr, float(d.max()))
+        over += int((d > 1.0).sum())
+        total += d.size
+        bound = SHARDED_TRAIN_LR_PER_UPDATE * single["updates"][
+            k.split(".")[0]] + SHARDED_TRAIN_ROUNDING_LR
+        if float(d.max()) > bound:
+            raise AssertionError(f"sharded train {k}: {float(d.max())} lr")
+    log(f"sharded train {TRAIN_SHARDED_SHAPE} after {steps} steps against "
+        f"the single Trainer on the same {cfg.batch_size} scenes: losses "
+        f"{[f'{e:.2e}' for e in worst_loss]} relative (tol "
+        f"{SHARDED_TRAIN_LOSS_RTOL}); parameters within {worst_lr:.6f} lr "
+        f"(tol {SHARDED_TRAIN_LR_PER_UPDATE} a update + "
+        f"{SHARDED_TRAIN_ROUNDING_LR}, updates "
+        f"{single['updates']}), {over} of {total} entries more than 1 lr "
+        f"apart; running statistics after each step within "
+        f"{[f'{e:.3f}' for e in worst_stats]} of their tolerance (rtol "
+        f"{SHARDED_TRAIN_STATS_RTOL}, running means after the first step "
+        f"+ {SHARDED_TRAIN_LR_PER_UPDATE} lr a update); joint losses "
+        f"{[round(x['joint'], 4) for x in got['losses']]}")
+    if over > SHARDED_TRAIN_FRAC_OVER_LR * total:
+        raise AssertionError("sharded train: too many parameters apart")
+    res["train_rank_ms"] = got["ms"]
+    res["train_rank_peak_gb"] = got["peak_gb"]
+    res["train_single_ms"] = single["ms"]
+    return got["launches"]
+
+
+def spatial_rank(rank, world, coordinator, paths, q) -> None:
+    """Phase 12 (b) and (d), one rank: joins the gloo job on the card,
+    builds the (1, world) pipeline mesh and the TRAIN_SHARDED_SHAPE train
+    mesh (the ranks past it idle there), runs the spatial step on FRAMES
+    frames and, on the train mesh, two sharded train steps, each with
+    every launch count set to 0 just before; then holds its kernels
+    against their plain versions on its own tensors. Sends its results."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from fvp_torch.parallel import make_mesh, make_pipeline_mesh
+    from fvp_torch.parallel.mesh import init_distributed
+
+    try:
+        backend = init_distributed(coordinator, world, rank, "cuda:0",
+                                   local_ranks=world)
+        if backend != "gloo":
+            raise AssertionError(f"ranks sharing a card got {backend}")
+        pipe = make_pipeline_mesh(1, world)
+        data = make_mesh(*TRAIN_SHARDED_SHAPE)
+        with open(paths["inputs"], "rb") as f:
+            inp = pickle.load(f)
+        out = {"spatial": spatial_rank_eval(pipe, inp), "train": None}
+        if data.active:
+            out["train"] = spatial_rank_train(data, inp)
+        q.put((rank, out))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spatial_rank_eval(pipe, inp) -> dict:
+    """Phase 12 (b) on one rank of the pipeline mesh."""
+    import torch
+
+    import fvp_torch.ops.kernels as K
+    from fvp_torch.engine.serve import Predictor, float32_math
+    from fvp_torch.geometry.cameras import default_ring_rig
+    from fvp_torch.ops.kernels import sampler as ksamp
+    from fvp_torch.ops.kernels import softargmax as ksa
+    from fvp_torch.ops.kernels import weightnet as kwn
+    from fvp_torch.ops.nms import nms_topk_2d
+    from fvp_torch.parallel import (make_spatial_eval_step, shard_data,
+                                    sharded_nms_topk_2d, spatial_centernet)
+
+    cfg = inp["cfg"]
+    rig = default_ring_rig(cfg.num_views, cfg.space_center,
+                           cfg.ori_image_size)
+    pred = Predictor.from_state_dict(cfg, inp["state"], rig, device="cuda")
+    frames = inp["heatmaps"]
+    step = make_spatial_eval_step(pred, pipe)
+    K.reset_launches()
+    pipe.staged_bytes = 0
+    lat, outs = [], []
+    for i in range(FRAMES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(step(shard_data(pipe, frames[i % len(frames)]), pred.rc))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    launches = launch_counts(K)
+    staged = pipe.staged_bytes / FRAMES
+
+    # the kernels and the sharded ops against their plain versions
+    rc, model, packed = pred.rc, pred.model, pred.packed
+    nx = cfg.voxels_per_axis[0]
+    XL = nx // pipe.shape[1]
+    x0 = pipe.coords[1] * XL
+    hm = torch.as_tensor(frames[0], device="cuda")
+    n, J, Kp = cfg.ind_voxels_per_axis[0], cfg.num_joints, cfg.max_people
+    heldd = {}
+    with torch.inference_mode(), float32_math():
+        rcb = ksamp.row_block(rc, cfg, x0, XL)
+        got = ksamp.whole_sample(hm, rcb, cfg, rows=(x0, XL))
+        ref = ksamp.whole_sample_plain(hm, rcb, cfg, rows=(x0, XL))
+        heldd["whole_sample rows"] = (float((got - ref).abs().max()), 1e-5)
+        k1_ms = time_ms(lambda: ksamp.whole_sample(hm, rcb, cfg,
+                                                   rows=(x0, XL)))
+        k1_plain_ms = time_ms(lambda: ksamp.whole_sample_plain(
+            hm, rcb, cfg, rows=(x0, XL)), 5)
+        bev = ksamp.whole_sample(hm, rc, cfg).amax(dim=3)
+        net = model.pose_net.center_net
+        hm_w, size_w = net.bev_forward(bev)
+        hm_b, size_b = spatial_centernet(net, bev[:, x0:x0 + XL], pipe)
+        heldd["spatial_centernet"] = (float(max(
+            (hm_b - hm_w[:, x0:x0 + XL]).abs().max(),
+            (size_b - size_w[:, x0:x0 + XL]).abs().max())), SPATIAL_CN_TOL)
+        mine = sharded_nms_topk_2d(pipe, hm_w[:, x0:x0 + XL, :, 0]
+                                   .contiguous(), Kp)
+        whole = nms_topk_2d(hm_w[..., 0], Kp)
+        nms_same = all(torch.equal(a, b) for a, b in zip(mine, whole))
+        props = outs[0]["proposals"]
+        mask = props[..., 3] >= 0
+        planes, _ = ksamp.person_planes(hm, rc, cfg, props[..., :3],
+                                        props[..., 5:7], mask)
+        corner, start, end, _ = ksamp.person_bounds(
+            props[..., :3], props[..., 5:7], mask, cfg)
+        heldd["person_planes"] = (float((planes - ksamp.person_planes_plain(
+            hm, rc, cfg, corner, start, end)).abs().max()), 1e-4)
+        feats = model.joint_net.conv_net(planes.reshape(3 * Kp, n, n, J))
+        fl = feats.reshape(3, Kp, n * n, J).contiguous()
+        c_k, p_k = ksa.soft_argmax(fl, rc.center_grid, cfg.beta)
+        c_p, p_p = ksa.soft_argmax_plain(fl, rc.center_grid, cfg.beta)
+        heldd["soft_argmax"] = (float(max((c_k - c_p).abs().max(),
+                                          (p_k - p_p).abs().max())), 1e-2)
+        feats = feats.contiguous()
+        w_k = kwn.weightnet_pool(feats, packed["weight_net"])
+        w_p = kwn.weightnet_pool_plain(feats, packed["weight_net"])
+        heldd["weightnet_pool"] = (float((w_k - w_p).abs().max()),
+                                   1e-4 * max(float(w_p.abs().max()), 1.0))
+    torch.cuda.synchronize()
+    return {"launches": launches, "lat": lat, "staged_per_frame": staged,
+            "out0": {k: v.cpu().numpy() for k, v in outs[0].items()},
+            "held": heldd, "nms_same": nms_same, "k1_ms": k1_ms,
+            "k1_plain_ms": k1_plain_ms, "rows": (x0, x0 + XL - 1)}
+
+
+def spatial_rank_train(data, inp) -> dict:
+    """Phase 12 (d) on one rank of the train mesh: two sharded train steps
+    on its 'data' block of the train phase's batches, with the counts set
+    to 0 just before; then K1 in sum mode and person_planes against their
+    plain versions on its block's tensors."""
+    import torch
+
+    import fvp_torch.ops.kernels as K
+    from fvp_torch.engine.train import Trainer, step_inputs
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.ops.kernels import sampler as ksamp
+    from fvp_torch.parallel import (make_sharded_train_step, shard_batch,
+                                    shard_data)
+
+    cfg = inp["tcfg"]
+    model = FasterVoxelPose(cfg)
+    model.load_state_dict(inp["init_state"])
+    trainer = Trainer(cfg, model, "cuda")
+    step = make_sharded_train_step(trainer, data)
+    rc = build_rig_constants(cfg, inp["rig"]).to("cuda")
+    inputs = [step_inputs(b, "cuda") for b in inp["batches"]]
+    blocks = [(shard_batch(data, x), shard_data(data, t),
+               shard_data(data, m)) for x, t, m in inputs]
+    K.reset_launches()
+    data.staged_bytes = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, stats = [], [], []
+    for x, targets, meta in blocks:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ls = step(x, rc, targets, meta)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in ls.items()})
+        stats.append(running_stats(model))
+    launches = launch_counts(K)
+    sums = K.all_kernels()["whole_sample.sum"].launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    staged = data.staged_bytes / len(blocks) / 1e6
+    state = {k: v.detach().cpu().numpy() for k, v in model.state_dict()
+             .items()}
+    heldd = {}
+    with torch.no_grad():
+        x, _, meta = blocks[0]
+        hm = trainer.heatmaps(x)
+        got = ksamp.whole_sample(hm, rc, cfg, view_sum=True)
+        ref = ksamp.whole_sample_plain(hm, rc, cfg, view_sum=True)
+        heldd["whole_sample sum mode"] = (float((got - ref).abs().max()),
+                                          1e-5 * cfg.num_views)
+        props = model.detect(hm, rc, None, True, meta)["proposals"]
+        mask = props[..., 3] >= 0
+        planes, _ = ksamp.person_planes(hm, rc, cfg, props[..., :3],
+                                        props[..., 5:7], mask)
+        corner, start, end, _ = ksamp.person_bounds(
+            props[..., :3], props[..., 5:7], mask, cfg)
+        heldd["person_planes"] = (float((planes - ksamp.person_planes_plain(
+            hm, rc, cfg, corner, start, end)).abs().max()), 1e-4)
+    return {"launches": launches, "sum_launches": sums, "ms": ms,
+            "losses": losses, "peak_gb": peak, "staged_mb": staged,
+            "held": heldd, "state": state, "stats": stats}
 
 
 def _leaves(tree):

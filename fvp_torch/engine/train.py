@@ -1,5 +1,7 @@
 """Training: the reference package's dual-optimizer step
-(fvp_tpu/engine/train.py) in PyTorch, on one device.
+(fvp_tpu/engine/train.py) in PyTorch, on one device; the data-parallel
+step over a mesh of ranks (parallel/sharding.py::make_sharded_train_step)
+runs its own forward and then `Trainer.update` with the 'data' axis.
 
 Two Adam optimizers (optax's defaults: b1 0.9, b2 0.999, eps 1e-8) over
 disjoint parameter sets:
@@ -151,22 +153,46 @@ class Trainer:
         """One step on a batch on the trainer's device (`x`, `targets`,
         `meta` as `step_inputs` gives them); returns the losses
         (LOSS_KEYS) as device scalars."""
-        cfg = self.cfg
         with float32_math():
-            heatmaps = self.heatmaps(x)
-            out = self.model(heatmaps, rc, train=True, meta=meta)
-            losses = compute_losses(cfg, out, targets, meta)
-            hdn_loss = (losses["2d_heatmaps"] + losses["1d_heatmaps"]
-                        + losses["bbox"])
-            jln_steps = _host_flag(losses["joint"] > 0)
-            self.model.zero_grad(set_to_none=True)
-            (hdn_loss + losses["joint"]).backward()
-            self._hdn_update(hdn_loss.detach())
-            if jln_steps():
-                for group in self.jln_opt.param_groups:
-                    group["lr"] = lr_at(cfg, self.jln_updates)
-                self.jln_opt.step()
-                self.jln_updates += 1
+            out = self.model(self.heatmaps(x), rc, train=True, meta=meta)
+            return self.update(out, targets, meta)
+
+    def update(self, out: dict, targets: Mapping, meta: Mapping,
+               data=None) -> dict[str, torch.Tensor]:
+        """The step after the forward: the losses of the train-mode
+        forward's output `out`, one backward, both optimizers. `data`
+        (the data-parallel step, parallel/sharding.py): the 'data' axis
+        (parallel/mesh.py::Axis) whose ranks hold the other blocks of the
+        batch. The losses then take the global batch's denominators, the
+        gradients are summed over the axis, and the returned losses, the
+        JLN's gate and the HDN window read the global batch's losses, so
+        every rank takes the same updates."""
+        cfg = self.cfg
+        losses = compute_losses(cfg, out, targets, meta, data)
+        local = losses
+        if data is not None:
+            total = data.all_reduce_sum(torch.stack(
+                [losses[k].detach() for k in LOSS_KEYS]))
+            losses = dict(zip(LOSS_KEYS, total))
+        hdn_loss = (losses["2d_heatmaps"] + losses["1d_heatmaps"]
+                    + losses["bbox"])
+        jln_steps = _host_flag(losses["joint"] > 0)
+        self.model.zero_grad(set_to_none=True)
+        (local["2d_heatmaps"] + local["1d_heatmaps"] + local["bbox"]
+         + local["joint"]).backward()
+        if data is not None:
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            total = data.all_reduce_sum(torch.cat([g.reshape(-1)
+                                                   for g in grads]))
+            for g, t in zip(grads, total.split([g.numel() for g in grads])):
+                g.copy_(t.view_as(g))
+        self._hdn_update(hdn_loss.detach())
+        if jln_steps():
+            for group in self.jln_opt.param_groups:
+                group["lr"] = lr_at(cfg, self.jln_updates)
+            self.jln_opt.step()
+            self.jln_updates += 1
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
 

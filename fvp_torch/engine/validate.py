@@ -37,7 +37,7 @@ RENDER_KEYS = ("mu", "vis", "sigma", "scale", "occ")
 
 def make_eval_step(cfg: FVPConfig, model: FasterVoxelPose, packed: dict,
                    backbone: PoseResNet | None = None,
-                   backbone_packed: dict | None = None):
+                   backbone_packed: dict | None = None, mesh=None):
     """Returns step(batch_input, rc) -> fused poses (B, K, J, 5) on the
     input's device, under inference mode.
 
@@ -47,13 +47,27 @@ def make_eval_step(cfg: FVPConfig, model: FasterVoxelPose, packed: dict,
     heatmaps (B, V, J, h, w). A backbone is ignored for the gt and pred
     sources: dispatch follows cfg.test_heatmap_src, not whether a backbone
     is loaded (a config may name one for training while it evaluates from
-    rendered heatmaps)."""
+    rendered heatmaps).
+
+    With `mesh` (a ('data', 'space') pipeline mesh of ranks,
+    parallel/mesh.py::make_pipeline_mesh) every rank takes the whole
+    batch input, runs the backbone or the splat on its 'data' block,
+    replicated over 'space', and the spatially sharded forward
+    (parallel/spatial.py); the blocks' poses are gathered over 'data', so
+    every rank returns the whole batch's, in its order."""
     if cfg.test_heatmap_src != "image":
         backbone = None
+    spatial = None
+    if mesh is not None:
+        from fvp_torch.parallel.sharding import shard_data
+        from fvp_torch.parallel.spatial import make_spatial_forward
+        spatial = make_spatial_forward(model, packed, mesh)
 
     @torch.inference_mode()
     @float32_math()
     def eval_step(batch_input, rc):
+        if spatial is not None:
+            batch_input = shard_data(mesh, batch_input)
         if backbone is not None:
             heatmaps = backbone_heatmaps(cfg, backbone, backbone_packed,
                                          batch_input)
@@ -62,7 +76,10 @@ def make_eval_step(cfg: FVPConfig, model: FasterVoxelPose, packed: dict,
                 cfg, *(batch_input[k] for k in RENDER_KEYS))
         else:
             heatmaps = batch_input
-        return model(heatmaps, rc, packed)["fused_poses"]
+        if spatial is None:
+            return model(heatmaps, rc, packed)["fused_poses"]
+        poses = spatial(heatmaps.contiguous(), rc)["fused_poses"]
+        return mesh.all_gather(poses, 0, "data")
 
     return eval_step
 
@@ -105,7 +122,7 @@ def eval_rng(cfg: FVPConfig) -> np.random.RandomState:
 def run_validation(cfg: FVPConfig, model: FasterVoxelPose, dataset,
                    rcs=None, backbone: PoseResNet | None = None,
                    batch_size: Optional[int] = None, device=None,
-                   log: Callable[[str], None] = print) -> dict:
+                   log: Callable[[str], None] = print, mesh=None) -> dict:
     """Run the eval loop; returns {'fused_poses': (len(dataset), K, J, 5)
     numpy in record order, 'fps' and 'batch_ms' (with more than one batch,
     the first excluded), 'metrics' (where the dataset has an evaluator)}.
@@ -116,8 +133,17 @@ def run_validation(cfg: FVPConfig, model: FasterVoxelPose, dataset,
     them from dataset.rigs. The model (and the backbone, for the image
     source) is packed once and moved to the device with its rig constants;
     each batch is copied to the device before its timer starts, and the
-    step is timed between two synchronisations of the card."""
+    step is timed between two synchronisations of the card.
+
+    `mesh`: this rank's ('data', 'space') pipeline mesh
+    (parallel/mesh.py::make_pipeline_mesh; `validate_on_mesh` spawns the
+    ranks). Every rank loads the same batches (eval_rng), runs its 'data'
+    block through the spatially sharded step and gets the whole batch's
+    poses back, so each returns the same result."""
     bs = batch_size or cfg.test_batch_size
+    if mesh is not None and bs % mesh.shape[0]:
+        raise ValueError(f"batch of {bs} does not split over "
+                         f"{mesh.shape[0]} 'data' ranks")
     if cfg.test_heatmap_src != "image":
         backbone = None
     engine = Engine(cfg, model, device, backbone)
@@ -129,7 +155,7 @@ def run_validation(cfg: FVPConfig, model: FasterVoxelPose, dataset,
         rcs = {rec["seq"]: rcs for rec in dataset.records}
     rcs = {seq: rc.to(dev) for seq, rc in rcs.items()}
     eval_step = make_eval_step(cfg, engine.model, engine.packed,
-                               engine.backbone, engine.backbone_packed)
+                               engine.backbone, engine.backbone_packed, mesh)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     all_poses = None
@@ -172,3 +198,68 @@ def run_validation(cfg: FVPConfig, model: FasterVoxelPose, dataset,
     if getattr(dataset, "has_evaluate_function", False):
         result["metrics"] = dataset.evaluate(all_poses)
     return result
+
+
+def validate_on_mesh(cfg: FVPConfig, model_state: Mapping, dataset_name: str,
+                     shape: tuple[int, int], device, backbone_state=None,
+                     log: Callable[[str], None] = print) -> dict:
+    """`run_validation` over an (n_data, n_space) pipeline mesh of ranks on
+    this host: this process is rank 0 and spawns the others, each of which
+    builds the dataset `dataset_name` (test split), the model from
+    `model_state` (and the backbone from `backbone_state`, for the image
+    source) and runs its block. CUDA ranks share the card over gloo (their
+    tensors staged through host memory). Returns rank 0's result; only
+    rank 0 logs."""
+    import multiprocessing as mp
+
+    from fvp_torch.parallel.mesh import free_port
+
+    world = shape[0] * shape[1]
+    coordinator = f"127.0.0.1:{free_port()}"
+    args = (world, coordinator, cfg, model_state, dataset_name, shape,
+            str(device), backbone_state)
+    ctx = mp.get_context("spawn")
+    ranks = [ctx.Process(target=_mesh_rank, args=(r, *args), daemon=True)
+             for r in range(1, world)]
+    for p in ranks:
+        p.start()
+    try:
+        res = _mesh_rank(0, *args, log=log)
+    finally:
+        for p in ranks:
+            p.join(timeout=60.0)
+            if p.is_alive():
+                p.kill()
+    if any(p.exitcode for p in ranks):
+        raise RuntimeError(f"validate ranks exited with "
+                           f"{[p.exitcode for p in ranks]}")
+    return res
+
+
+def _mesh_rank(rank, world, coordinator, cfg, model_state, dataset_name,
+               shape, device, backbone_state, log=lambda s: None) -> dict:
+    """One rank of `validate_on_mesh`."""
+    import torch.distributed as dist
+
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.parallel.mesh import init_distributed, make_pipeline_mesh
+
+    if device == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    backend = init_distributed(coordinator, world, rank, device, world)
+    try:
+        mesh = make_pipeline_mesh(*shape)
+        log(f"pipeline mesh: {shape[0]} data x {shape[1]} space over "
+            f"{world} ranks ({backend}, {device})")
+        dataset = build_dataset(dataset_name, cfg, is_train=False)
+        log(f"test: {len(dataset)} frames on {device}")
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(model_state)
+        backbone = None
+        if backbone_state is not None:
+            backbone = PoseResNet(cfg.num_joints, cfg.resnet_layers)
+            backbone.load_state_dict(backbone_state)
+        return run_validation(cfg, model, dataset, backbone=backbone,
+                              device=device, log=log, mesh=mesh)
+    finally:
+        dist.destroy_process_group()

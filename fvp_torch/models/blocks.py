@@ -16,6 +16,7 @@ and hands to its BatchNorms.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -23,17 +24,51 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class _SumOver(torch.autograd.Function):
+    """A sum over the ranks of an axis whose backward is the same sum:
+    each rank's loss depends on every rank's input through the summed
+    statistics, and the gradient of that dependence is gathered back the
+    same way."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_reduce_sum(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce_sum(g.clone()), None
+
+
 def batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
                      x: torch.Tensor) -> torch.Tensor:
     """Train-mode BatchNorm as flax's `nn.BatchNorm` computes it: batch
     statistics (biased variance) normalise; the running statistics move by
     the momentum towards the batch mean and the *biased* batch variance
-    (torch's own BatchNorm would take the unbiased one)."""
-    y = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
-                     eps=bn.eps)
+    (torch's own BatchNorm would take the unbiased one).
+
+    Where `bn.data` holds the 'data' axis of the data-parallel train step
+    (parallel/mesh.py::Axis; set by `data_parallel`), the statistics are
+    the global batch's, whose blocks the axis's ranks hold, as in the
+    reference's one global program: the mean, then the biased variance
+    about it, each a differentiable sum over the axis."""
+    dims = [0] + list(range(2, x.dim()))
+    if bn.data is None:
+        y = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                         eps=bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+    else:
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = x.new_tensor([float(x.numel() // x.shape[1])])
+        total = _SumOver.apply(torch.cat([x.sum(dim=dims), count]), bn.data)
+        mean = total[:-1] / total[-1]
+        d = x - mean.reshape(shape)
+        var = _SumOver.apply((d * d).sum(dim=dims), bn.data) / total[-1]
+        a = torch.rsqrt(var + bn.eps) * bn.weight
+        y = d * a.reshape(shape) + bn.bias.reshape(shape)
+        mean, var = mean.detach(), var.detach()
     with torch.no_grad():
-        dims = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
         r = 1.0 - bn.momentum
         bn.running_mean.mul_(r).add_(mean, alpha=bn.momentum)
         bn.running_var.mul_(r).add_(var, alpha=bn.momentum)
@@ -47,7 +82,12 @@ def masked_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     with the statistics of its members in the mask (biased variance);
     members outside it are zeroed. The running statistics take the
     closed form of torch's sequential update, once per group with a
-    member, in group order, with the unbiased variance."""
+    member, in group order, with the unbiased variance.
+
+    A group is a scene, and a scene lives on one rank of the data-parallel
+    train step, so the normalisation stays local; where `bn.data` holds
+    the 'data' axis, the running update runs over the groups of every
+    rank, in rank order: the global batch's group order."""
     G, M = mask.shape
     C = x.shape[1]
     xg = x.reshape(G, M, C, -1)
@@ -62,18 +102,26 @@ def masked_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     b = bn.bias - mean * a
     y = (xg * a[:, None, :, None] + b[:, None, :, None]) * m
     with torch.no_grad():
+        unbiased = var * (cnt / (cnt - 1.0).clamp(min=1.0))[:, None]
+        mean = mean.detach()
+        if bn.data is not None:
+            both = bn.data.all_gather(torch.cat(
+                [mean, unbiased, cnt[:, None]], dim=1))
+            mean, unbiased, cnt = both[:, :C], both[:, C:2 * C], both[:, -1]
         valid = (cnt > 0).to(x.dtype)
         r = 1.0 - bn.momentum
         after = valid.flip(0).cumsum(0).flip(0) - valid      # valid after g
         w = (valid * (1.0 - r) * r ** after)[:, None]
         rpow = r ** valid.sum()
-        unbiased = var * (cnt / (cnt - 1.0).clamp(min=1.0))[:, None]
         bn.running_mean.mul_(rpow).add_((w * mean).sum(0))
         bn.running_var.mul_(rpow).add_((w * unbiased).sum(0))
     return y.reshape(x.shape)
 
 
 class _TrainBN:
+    # the 'data' axis of the data-parallel train step, or None
+    data = None
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
                 ) -> torch.Tensor:
         if not self.training:
@@ -81,6 +129,22 @@ class _TrainBN:
         if mask is not None:
             return masked_batch_norm(self, x, mask)
         return batch_norm_train(self, x)
+
+
+@contextlib.contextmanager
+def data_parallel(model: nn.Module, data):
+    """Inside, the train-mode BatchNorms of `model` take their statistics
+    over the 'data' axis `data` (parallel/mesh.py::Axis) as
+    `batch_norm_train` and `masked_batch_norm` say; None leaves them
+    local. They are local again afterwards."""
+    bns = [m for m in model.modules() if isinstance(m, _TrainBN)]
+    for bn in bns:
+        bn.data = data
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.data = None
 
 
 class BatchNorm2d(_TrainBN, nn.BatchNorm2d):

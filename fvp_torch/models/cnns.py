@@ -54,7 +54,11 @@ class CenterNet(nn.Module):
             nn.Conv2d(head_conv, 2, 1))
 
     def forward(self, volume: torch.Tensor):
-        x = volume.amax(dim=3).permute(0, 3, 1, 2)      # (B, J, X, Y)
+        return self.bev_forward(volume.amax(dim=3))
+
+    def bev_forward(self, bev: torch.Tensor):
+        """From the BEV map (B, X, Y, J), the volume's max over z."""
+        x = bev.permute(0, 3, 1, 2)                     # (B, J, X, Y)
         x = self.encoder_decoder(self.front_layers(x))
         hm = self.output_hm(x).permute(0, 2, 3, 1)
         size = self.output_size(x).permute(0, 2, 3, 1)

@@ -138,7 +138,22 @@ class FasterVoxelPose(nn.Module):
         vol_flat = volumes.reshape(B, nx * ny, nz, J)
         columns = torch.gather(
             vol_flat, 1, flat[:, :, None, None].expand(B, K, nz, J))
-        columns = columns.reshape(B * K, nz, J)
+        det = self.place(confs2d, xy, match_bbox, columns, rc, packed,
+                         train, meta)
+        return {**det, "hm2d": hm2d[..., 0], "bbox_flat": bbox_flat}
+
+    def place(self, confs2d, xy, match_bbox, columns, rc: RigConstants,
+              packed: dict | None, train: bool = False,
+              meta: dict | None = None) -> dict:
+        """`propose` from the NMS peaks on: their confidences (B, K), (x,
+        y) voxels (B, K, 2), bbox sizes (B, K, 2) and volume z-columns (B,
+        K, Z, J) -> C2CNet's z, the proposals (B, K, 7). The spatially
+        sharded step enters here with peaks it picked over row blocks
+        (parallel/spatial.py)."""
+        cfg = self.cfg
+        B, K = confs2d.shape
+        nz = cfg.voxels_per_axis[2]
+        columns = columns.reshape(B * K, nz, columns.shape[-1])
         if train:
             hm1d = self.pose_net.c2c_net(columns)
         elif cfg.fuse_p2p and nz % 4 == 0:
@@ -163,8 +178,7 @@ class FasterVoxelPose(nn.Module):
             proposal2gt = (confs > cfg.min_score).to(torch.float32) - 1.0
         proposals = torch.cat([centers_mm, proposal2gt[:, :, None],
                                confs[:, :, None], match_bbox], dim=2)
-        return {"proposals": proposals, "hm2d": hm2d[..., 0], "hm1d": hm1d,
-                "bbox_flat": bbox_flat, "columns": columns}
+        return {"proposals": proposals, "hm1d": hm1d, "columns": columns}
 
     # ------------------------------------------------------------------
     def localize(self, heatmaps, rc: RigConstants, proposals,
@@ -265,6 +279,14 @@ class FasterVoxelPose(nn.Module):
         if not train and packed is None:
             raise ValueError("the eval forward needs the packed weights")
         det = self.detect(heatmaps, rc, packed, train, meta)
+        return self.complete(det, heatmaps, rc, packed, train)
+
+    def complete(self, det: dict, heatmaps, rc: RigConstants,
+                 packed: dict | None, train: bool = False) -> dict:
+        """`forward` after the HDN: the JLN on `det`'s proposals and the
+        heatmaps, then `finish`. The sharded train step enters here with
+        its reduced volume's detection and its gathered heatmaps
+        (parallel/sharding.py)."""
         fused, planes, jln_confs = self.localize(
             heatmaps, rc, det["proposals"], packed, train)
         out = self.finish(det["proposals"], fused, jln_confs)
@@ -283,24 +305,41 @@ class FasterVoxelPose(nn.Module):
 # ---------------------------------------------------------------------------
 
 def compute_losses(cfg: FVPConfig, outputs: dict, targets: dict,
-                   meta: dict) -> dict:
+                   meta: dict, data=None) -> dict:
     """The four losses of the reference package's `compute_losses`, with
     its masking and normalisation.
 
     targets: 2d_heatmaps (B, X, Y), 1d_heatmaps (B, G, Z), index (B, G),
              bbox (B, G, 2), mask (B, G)
     meta:    joints_3d (B, G, J, 3), joints_3d_vis (B, G, J)
+
+    `data` (the data-parallel train step, parallel/sharding.py): the
+    'data' axis (parallel/mesh.py::Axis) whose ranks hold the other
+    blocks of the batch. The denominators are then the global batch's
+    (its B*X*Y cells, matched proposals and target people), summed over
+    the axis, and each loss is this block's numerator over them: the
+    losses' sum over the ranks is the global batch's loss, as the
+    reference's one global program computes it.
     """
     prop = outputs["proposals"]
     mask = outputs["mask"]                                  # (B, K)
     B, K = mask.shape
     J = cfg.num_joints
     p2g_idx = prop[..., 3].clamp(min=0.0).to(torch.int64)    # (B, K)
-    n_matched = mask.sum()
+    tmask = targets["mask"].to(torch.float32)
+    se_2d = (outputs["hm2d"] - targets["2d_heatmaps"]) ** 2
+    if data is None:
+        n_matched = mask.sum()
+        n_target = tmask.sum()
+        mean_2d = se_2d.mean()
+    else:
+        n_matched, n_target, cells = data.all_reduce_sum(torch.stack([
+            mask.sum().to(torch.float32), tmask.sum(),
+            se_2d.new_tensor(float(se_2d.numel()))]))
+        mean_2d = se_2d.sum() / cells
 
     # 2D BEV heatmap MSE over every cell
-    loss_2d = cfg.lambda_loss_2d * ((outputs["hm2d"]
-                                     - targets["2d_heatmaps"]) ** 2).mean()
+    loss_2d = cfg.lambda_loss_2d * mean_2d
 
     # 1D z-heatmap MSE over matched proposals only
     t1d = targets["1d_heatmaps"]
@@ -316,8 +355,7 @@ def compute_losses(cfg: FVPConfig, outputs: dict, targets: dict,
     gt_index = targets["index"].to(torch.int64)             # (B, G)
     pred_bbox = torch.gather(outputs["bbox_flat"], 1,
                              gt_index[:, :, None].expand(-1, -1, 2))
-    tmask = targets["mask"].to(torch.float32)
-    denom_bb = (tmask.sum() * 2).clamp(min=1)
+    denom_bb = (n_target * 2).clamp(min=1)
     loss_bbox = cfg.lambda_loss_bbox * ((pred_bbox - targets["bbox"]).abs()
                                         * tmask[:, :, None]).sum() / denom_bb
 

@@ -12,6 +12,8 @@ collapses every person's cube from that layout, one block per (person,
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -35,27 +37,49 @@ TILE_X = 16              # x values a thread of person_planes loops over
 # K1: whole-space volume
 # --------------------------------------------------------------------------
 
+def row_block(rc: RigConstants, cfg: FVPConfig, x0: int,
+              rows: int) -> RigConstants:
+    """`rc` with whole_sample_px cut to the voxels of x-rows x0 ..
+    x0+rows-1, made contiguous: the voxels are x-major, so a row block is
+    one range of the N voxels of each view. Make it once per rig, not per
+    frame (parallel/spatial.py)."""
+    _, ny, nz = cfg.voxels_per_axis
+    px = rc.whole_sample_px[..., x0 * ny * nz:(x0 + rows) * ny * nz]
+    return dataclasses.replace(rc, whole_sample_px=px.contiguous())
+
+
 def whole_sample_plain(heatmaps: torch.Tensor, rc: RigConstants,
-                       cfg: FVPConfig, view_sum: bool = False
-                       ) -> torch.Tensor:
+                       cfg: FVPConfig, view_sum: bool = False,
+                       rows: tuple[int, int] | None = None) -> torch.Tensor:
     """(B, V, J, H, W) -> (B, nx, ny, nz, J) whole-space volumes (view
-    sums with `view_sum`)."""
-    return torch.stack([project_whole(h, rc, cfg, view_sum)
+    sums with `view_sum`; x-rows x0 .. x0+XL-1 alone with `rows` (x0,
+    XL), as `whole_sample`)."""
+    return torch.stack([project_whole(h, rc, cfg, view_sum,
+                                      None if rows is None else rows[1])
                         for h in heatmaps])
 
 
 def whole_sample(heatmaps: torch.Tensor, rc: RigConstants,
-                 cfg: FVPConfig, view_sum: bool = False) -> torch.Tensor:
+                 cfg: FVPConfig, view_sum: bool = False,
+                 rows: tuple[int, int] | None = None) -> torch.Tensor:
     """(B, V, J, H, W) heatmaps -> (B, nx, ny, nz, J) volumes in [0, 1]:
     bilinear sample of every view at rc.whole_sample_px, view mean,
     clamp. With `view_sum` (sum mode), the float32 sum over the V views
     given, unnormalised and unclamped: rc.whole_sample_px then holds those
     views' coords (a slice of the rig's first axis), and
-    ops/sampling.py::view_mean of the parts' sum is the volume."""
+    ops/sampling.py::view_mean of the parts' sum is the volume. With
+    `rows` (x0, XL), the volume's x-rows x0 .. x0+XL-1 alone, (B, XL, ny,
+    nz, J): rc.whole_sample_px then holds those rows' coords
+    (`row_block`), the spatially sharded step's block."""
     if not heatmaps.is_cuda:
-        return whole_sample_plain(heatmaps, rc, cfg, view_sum)
+        return whole_sample_plain(heatmaps, rc, cfg, view_sum, rows)
     B, V, J, H, W = heatmaps.shape
     nx, ny, nz = cfg.voxels_per_axis
+    if rows is not None:
+        x0, nx = rows
+        if x0 < 0 or x0 + nx > cfg.voxels_per_axis[0]:
+            raise ValueError(f"whole_sample: rows {rows} outside the "
+                             f"space's {cfg.voxels_per_axis[0]}")
     N = nx * ny * nz
     if J not in (15, 17):
         raise ValueError(f"whole_sample: {J} joints; the kernel is built "

@@ -68,12 +68,15 @@ def view_mean(total: torch.Tensor, num_views: int) -> torch.Tensor:
 
 
 def project_whole(heatmaps: torch.Tensor, rc: RigConstants,
-                  cfg: FVPConfig, view_sum: bool = False) -> torch.Tensor:
+                  cfg: FVPConfig, view_sum: bool = False,
+                  rows: int | None = None) -> torch.Tensor:
     """Aggregate (V, J, H, W) view heatmaps into the whole-space volume
     (nx, ny, nz, J), values clamped to [0, 1]. With `view_sum`, the sum
     over these views instead, unnormalised and unclamped (a rank's part of
     a volume whose views are spread over ranks); `view_mean` of the parts'
-    sum is then the volume."""
+    sum is then the volume. With `rows`, rc.whole_sample_px holds the
+    coords of that many x-rows alone (a row block of the volume,
+    ops/kernels/sampler.py::row_block) and the volume has that many."""
     px = rc.whole_sample_px
     sampled = torch.stack([bilinear_sample(heatmaps[v], px[v, 0], px[v, 1])
                            for v in range(heatmaps.shape[0])])
@@ -81,6 +84,7 @@ def project_whole(heatmaps: torch.Tensor, rc: RigConstants,
     if not view_sum:
         volume = view_mean(volume, heatmaps.shape[0])
     nx, ny, nz = cfg.voxels_per_axis
+    nx = nx if rows is None else rows
     return volume.reshape(heatmaps.shape[1], nx, ny, nz).permute(1, 2, 3, 0)
 
 

@@ -1,18 +1,30 @@
-"""A ('data', 'view') mesh of processes over torch.distributed.
+"""Meshes of processes over torch.distributed: a ('data', 'view') mesh
+and a ('data', 'space') pipeline mesh.
 
-Axes, as in the reference package's fvp_tpu/parallel/mesh.py:
-  'data' -- batch (data parallelism; frames are independent)
-  'view' -- cameras (each rank holds a subset of the views' backbone and
-            volume sampling; the whole-space volume's view mean becomes an
-            all-reduce over this axis)
+Axes, as in the reference package's fvp_tpu/parallel/mesh.py and
+spatial.py:
+  'data'  -- batch (data parallelism; frames are independent)
+  'view'  -- cameras (each rank holds a subset of the views' backbone and
+             volume sampling; the whole-space volume's view mean becomes an
+             all-reduce over this axis)
+  'space' -- voxel x-rows (each rank holds a row block of the whole-space
+             volume and BEV maps; windowed ops exchange seam rows with the
+             neighbouring blocks, parallel/spatial.py)
 
 The reference runs one process per host and lets GSPMD place the
 collectives; here each rank is one process, the torch idiom, and the
-collectives are explicit (sharding.py). A `Mesh` holds this rank's
-coordinates and one process group per data row (its 'view' group) and per
-view column (its 'data' group). Ranks past n_data * n_view take part in
-no group's work: they are idle, as the reference's `make_mesh` leaves the
-devices past `devices[:n]`.
+collectives are explicit (`Mesh.all_reduce_sum`, `all_gather`,
+`broadcast`, and spatial.py's row exchange). A `Mesh` holds this rank's
+coordinates and one process group per data row (its group along the
+second axis) and per column (its 'data' group). Ranks past n_data * n_2
+take part in no group's work: they are idle, as the reference's
+`make_mesh` leaves the devices past `devices[:n]`.
+
+The collectives run on the group's backend. A gloo group of CUDA ranks
+(ranks sharing one card) gets host copies of its tensors, made here
+explicitly and counted in `Mesh.staged_bytes` (a gloo group of one rank
+copies nothing: its collectives are the identity); NCCL groups take the
+card's tensors as they are.
 
 `torch.distributed.device_mesh` is not used: its API differs between
 PyTorch releases, and for CUDA it picks NCCL and one card per rank, which
@@ -83,13 +95,19 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
     return backend
 
 
+def staged(t: torch.Tensor, group) -> bool:
+    """Whether a collective of `group` takes `t` through host memory: a
+    CUDA tensor in a gloo group."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in an (n_data, n_view) mesh of ranks r = d *
-    n_view + v. `groups` maps an axis name to the process group of the
-    ranks that share this rank's other coordinate (empty on an idle
-    rank). `staged_bytes` counts the
-    bytes that sharding.py's collectives copied between the card and host
+    """This rank's place in an (n_data, n) mesh of ranks r = d * n + i,
+    its second axis named `axis_names[1]` ('view' or 'space'). `groups`
+    maps an axis name to the process group of the ranks that share this
+    rank's other coordinate (empty on an idle rank). `staged_bytes` counts
+    the bytes that the collectives copied between the card and host
     memory (gloo groups of CUDA ranks)."""
 
     shape: tuple[int, int]
@@ -104,33 +122,131 @@ class Mesh:
 
     @property
     def coords(self) -> tuple[int, int] | None:
-        """(data index, view index), or None on an idle rank."""
+        """(data index, index on the second axis), or None on an idle
+        rank."""
         return divmod(self.rank, self.shape[1]) if self.active else None
 
     def axis_ranks(self, axis: str) -> list[int]:
         """The global ranks of this rank's group along `axis`, in order."""
-        d, v = self.coords
-        n_data, n_view = self.shape
-        if axis == "view":
-            return [d * n_view + i for i in range(n_view)]
-        return [i * n_view + v for i in range(n_data)]
+        d, i = self.coords
+        n_data, n = self.shape
+        if axis == self.axis_names[1]:
+            return [d * n + j for j in range(n)]
+        if axis != "data":
+            raise ValueError(f"no axis {axis!r} in {self.axis_names}")
+        return [j * n + i for j in range(n_data)]
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    def _alone(self, t: torch.Tensor, axis: str) -> bool:
+        """Whether a collective of `t` along `axis` is the identity and
+        would only copy through host memory: a gloo group of one CUDA
+        rank."""
+        return self.size(axis) == 1 and staged(t, self.groups[axis])
+
+    def all_reduce_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of `t` over the ranks of this rank's `axis` group."""
+        group = self.groups[axis]
+        if self._alone(t, axis):
+            return t
+        if not staged(t, group):
+            t = t.contiguous()
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            return t
+        host = t.contiguous().cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        self.staged_bytes += 2 * host.nbytes
+        return host.to(t.device)
+
+    def all_gather(self, t: torch.Tensor, dim: int,
+                   axis: str) -> torch.Tensor:
+        """The ranks' `t` of this rank's `axis` group, concatenated along
+        `dim` in the group's rank order."""
+        group = self.groups[axis]
+        if self._alone(t, axis):
+            return t
+        src = t.contiguous()
+        src = src.cpu() if staged(t, group) else src
+        parts = [torch.empty_like(src) for _ in range(self.size(axis))]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts, dim=dim)
+        if src.device == t.device:
+            return out
+        self.staged_bytes += src.nbytes + out.nbytes
+        return out.to(t.device)
+
+    def broadcast(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The first rank's `t` of this rank's `axis` group, on every
+        rank."""
+        group = self.groups[axis]
+        src = self.axis_ranks(axis)[0]
+        if self._alone(t, axis):
+            return t
+        if not staged(t, group):
+            t = t.contiguous()
+            dist.broadcast(t, src, group=group)
+            return t
+        host = t.contiguous().cpu()
+        dist.broadcast(host, src, group=group)
+        self.staged_bytes += 2 * host.nbytes
+        return host.to(t.device)
+
+
+def _make(n_data: int, n: int, axis_names: tuple[str, str]) -> Mesh:
+    """This rank's (n_data, n) mesh over the initialised default group.
+    Every rank calls `new_group` for every row and column, in the same
+    order, as torch requires, idle ranks included: so one job can build
+    several meshes, each rank in the same order."""
+    world = dist.get_world_size()
+    if world < n_data * n:
+        raise ValueError(f"a ({n_data}, {n}) mesh needs {n_data * n} ranks;"
+                         f" the job has {world}")
+    mesh = Mesh((n_data, n), dist.get_rank(), axis_names=axis_names)
+    rows = [dist.new_group([d * n + i for i in range(n)])
+            for d in range(n_data)]
+    cols = [dist.new_group([d * n + i for d in range(n_data)])
+            for i in range(n)]
+    if mesh.active:
+        d, i = mesh.coords
+        mesh.groups = {axis_names[1]: rows[d], "data": cols[i]}
+    return mesh
 
 
 def make_mesh(n_data: int, n_view: int) -> Mesh:
-    """This rank's (n_data, n_view) mesh over the initialised default
-    group. Every rank calls `new_group` for every row and column, in the
-    same order, as torch requires, idle ranks included."""
-    world = dist.get_world_size()
-    n = n_data * n_view
-    if world < n:
-        raise ValueError(f"a ({n_data}, {n_view}) mesh needs {n} ranks; "
-                         f"the job has {world}")
-    mesh = Mesh((n_data, n_view), dist.get_rank())
-    rows = [dist.new_group([d * n_view + v for v in range(n_view)])
-            for d in range(n_data)]
-    cols = [dist.new_group([d * n_view + v for d in range(n_data)])
-            for v in range(n_view)]
-    if mesh.active:
-        d, v = mesh.coords
-        mesh.groups = {"view": rows[d], "data": cols[v]}
-    return mesh
+    """This rank's ('data', 'view') mesh of (n_data, n_view) ranks."""
+    return _make(n_data, n_view, ("data", "view"))
+
+
+def make_pipeline_mesh(n_data: int, n_space: int) -> Mesh:
+    """This rank's ('data', 'space') mesh for the spatially sharded eval
+    pipeline: batch over 'data', whole-space voxel x-rows over 'space'."""
+    return _make(n_data, n_space, ("data", "space"))
+
+
+def make_spatial_mesh(n_blocks: int) -> Mesh:
+    """A (1, n_blocks) 'space' mesh: the x-rows over every rank."""
+    return make_pipeline_mesh(1, n_blocks)
+
+
+def spatial_size(mesh: Mesh | None) -> int:
+    """Number of voxel-row blocks (the 'space' extent; 1 = not sharded)."""
+    if mesh is None or "space" not in mesh.axis_names:
+        return 1
+    return mesh.size("space")
+
+
+@dataclasses.dataclass
+class Axis:
+    """One axis of this rank's mesh, as the modules that reduce over it
+    take it (models/blocks.py's train-mode BatchNorms and
+    models/faster_voxelpose.py::compute_losses over 'data')."""
+
+    mesh: Mesh
+    name: str
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce_sum(t, self.name)
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return self.mesh.all_gather(t, dim, self.name)

@@ -1,10 +1,12 @@
-"""The view-sharded eval step over a ('data', 'view') mesh (mesh.py).
+"""Sharded steps over a ('data', 'view') mesh (mesh.py): the view-sharded
+eval step and the data-parallel train step.
 
-The counterpart of the reference package's fvp_tpu/parallel/sharding.py
-`make_sharded_eval_step`, which GSPMD partitions: here each rank runs its
-part and the collectives are explicit. A rank of data row d and view
-column v takes the batch block x[d-th B/n_data frames, v-th V/n_view
-views] (`shard_batch`), and for its row:
+The counterparts of the reference package's fvp_tpu/parallel/sharding.py
+`make_sharded_eval_step` and `make_sharded_train_step`, which GSPMD
+partitions: here each rank runs its part and the collectives are
+explicit (mesh.py::Mesh). A rank of data row d and view column v takes
+the batch block x[d-th B/n_data frames, v-th V/n_view views]
+(`shard_batch`), and for its row the eval step:
 
 1. runs the backbone on its views' images (or takes its heatmaps);
 2. samples its views into the whole-space volume in K1's sum mode;
@@ -24,31 +26,39 @@ The numbers are the unsharded forward's, up to the order of the view sum
 run on fewer people at a time; a view group of one is bit for bit the
 unsharded forward.
 
-The collectives run on the group's backend. A gloo group of CUDA ranks
-(ranks sharing one card) gets host copies of its tensors, made here
-explicitly and counted in `Mesh.staged_bytes`; NCCL groups take the
-card's tensors as they are.
+The train step does 1-3 and 5 in train mode, runs the HDN and the JLN
+whole on every view rank, and reduces over 'data' what the reference's
+one global program computes over the global batch: CenterNet's and
+C2CNet's BatchNorm statistics (models/blocks.py::data_parallel), the
+masked BatchNorms' running update in global group order, the losses'
+denominators (models/faster_voxelpose.py::compute_losses) and the
+gradients (engine/train.py::Trainer.update). A data axis of one is the
+single-device step, and a (1, 1) mesh bit for bit `Trainer.train_step`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping
 
 import torch
-import torch.distributed as dist
 
 from fvp_torch.engine.serve import Engine, backbone_heatmaps, float32_math
+from fvp_torch.engine.train import Trainer
 from fvp_torch.geometry.grids import RigConstants
+from fvp_torch.models.blocks import data_parallel
 from fvp_torch.ops.kernels.sampler import whole_sample
 from fvp_torch.ops.sampling import view_mean
-from fvp_torch.parallel.mesh import Mesh
+from fvp_torch.parallel.mesh import Axis, Mesh
 
 
 def shard_batch(mesh: Mesh, x):
     """This rank's block x[data block, view block] of a full batch x (B, V,
-    ...), numpy or torch. Every process holds the full value and takes its
-    block: the reference's `make_global` contract, with one process a
-    rank."""
+    ...), numpy or torch, or of each value of a mapping of such (render
+    parameters). Every process holds the full value and takes its block:
+    the reference's `make_global` contract, with one process a rank."""
+    if isinstance(x, Mapping):
+        return {k: shard_batch(mesh, v) for k, v in x.items()}
     n_data, n_view = mesh.shape
     B, V = x.shape[:2]
     if B % n_data or V % n_view:
@@ -59,53 +69,19 @@ def shard_batch(mesh: Mesh, x):
     return x[d * b:(d + 1) * b, v * w:(v + 1) * w]
 
 
-def _staged(t: torch.Tensor, group) -> bool:
-    """Whether a collective of `group` takes `t` through host memory: a
-    CUDA tensor in a gloo group."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
-def _all_reduce_sum(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
-    """The sum of `t` over the ranks of this rank's `axis` group."""
-    group = mesh.groups[axis]
-    if not _staged(t, group):
-        t = t.contiguous()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-        return t
-    host = t.cpu()
-    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
-    mesh.staged_bytes += 2 * host.nbytes
-    return host.to(t.device)
-
-
-def _all_gather(mesh: Mesh, t: torch.Tensor, dim: int,
-                axis: str) -> torch.Tensor:
-    """The ranks' `t` of this rank's `axis` group, concatenated along
-    `dim` in the group's rank order."""
-    group = mesh.groups[axis]
-    n = len(mesh.axis_ranks(axis))
-    src = t.cpu() if _staged(t, group) else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim=dim)
-    if src.device == t.device:
-        return out
-    mesh.staged_bytes += src.nbytes + out.nbytes
-    return out.to(t.device)
-
-
-def _broadcast(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
-    """The first rank's `t` of this rank's `axis` group, on every rank."""
-    group = mesh.groups[axis]
-    src = mesh.axis_ranks(axis)[0]
-    if not _staged(t, group):
-        t = t.contiguous()
-        dist.broadcast(t, src, group=group)
-        return t
-    host = t.cpu()
-    dist.broadcast(host, src, group=group)
-    mesh.staged_bytes += 2 * host.nbytes
-    return host.to(t.device)
+def shard_data(mesh: Mesh, x):
+    """This rank's 'data' block x[d-th B/n_data] of a full batch x (B, ...)
+    or of each value of a mapping of such (targets, meta, render
+    parameters), whole along every other axis."""
+    if isinstance(x, Mapping):
+        return {k: shard_data(mesh, v) for k, v in x.items()}
+    n_data = mesh.shape[0]
+    B = x.shape[0]
+    if B % n_data:
+        raise ValueError(f"batch of {B} does not split over {n_data} "
+                         "'data' ranks")
+    b, d = B // n_data, mesh.coords[0]
+    return x[d * b:(d + 1) * b]
 
 
 def make_sharded_eval_step(engine: Engine, mesh: Mesh):
@@ -145,10 +121,10 @@ def make_sharded_eval_step(engine: Engine, mesh: Mesh):
         rc_views = dataclasses.replace(
             rc, whole_sample_px=rc.whole_sample_px[v0:v0 + n_local])
         part = whole_sample(hm, rc_views, cfg, view_sum=True)
-        volumes = view_mean(_all_reduce_sum(mesh, part, "view"), V)
+        volumes = view_mean(mesh.all_reduce_sum(part, "view"), V)
         det = model.propose(volumes, rc, engine.packed)
-        proposals = _broadcast(mesh, det["proposals"], "view")
-        heatmaps = _all_gather(mesh, hm, 1, "view")
+        proposals = mesh.broadcast(det["proposals"], "view")
+        heatmaps = mesh.all_gather(hm, 1, "view")
 
         mine = proposals[:, k0:k0 + k_local]
         pad = k_local - mine.shape[1]
@@ -159,8 +135,50 @@ def make_sharded_eval_step(engine: Engine, mesh: Mesh):
             mine = torch.cat([mine, fill], dim=1)
         fused, _, scores = model.localize(heatmaps, rc, mine.contiguous(),
                                           engine.packed)
-        fused = _all_gather(mesh, fused, 1, "view")[:, :K]
-        scores = _all_gather(mesh, scores, 1, "view")[:, :K]
+        fused = mesh.all_gather(fused, 1, "view")[:, :K]
+        scores = mesh.all_gather(scores, 1, "view")[:, :K]
         return model.finish(proposals, fused, scores)
+
+    return step
+
+
+def make_sharded_train_step(trainer: Trainer, mesh: Mesh):
+    """`step(block, rc, targets, meta)` on this rank of a ('data', 'view')
+    mesh: `block` is its `shard_batch` block of a train batch (heatmaps
+    (B, V, J, h, w), render parameters or, where `trainer` holds a frozen
+    backbone, normalized images (B, V, H, W, 3)); `targets` and `meta`
+    its `shard_data` blocks, as tensors on the trainer's device; `rc` the
+    rig constants of all V views. One train step of every rank's
+    `trainer` on the global batch; returns the global batch's losses
+    (LOSS_KEYS), the same on every rank. Every rank builds `trainer` from
+    the same weights and takes the same updates."""
+    if not mesh.active:
+        raise ValueError(f"rank {mesh.rank} is idle on a {mesh.shape} mesh")
+    if mesh.axis_names != ("data", "view"):
+        raise ValueError(f"a {mesh.axis_names} mesh; the train step shards "
+                         "('data', 'view')")
+    cfg, model = trainer.cfg, trainer.model
+    V = cfg.num_views
+    n_data, n_view = mesh.shape
+    if V % n_view:
+        raise ValueError(f"{V} views do not split over {n_view} ranks")
+    n_local = V // n_view
+    v0 = mesh.coords[1] * n_local
+    data = Axis(mesh, "data") if n_data > 1 else None
+
+    def step(block, rc: RigConstants, targets, meta) -> dict:
+        with float32_math(), data_parallel(model, data):
+            hm = trainer.heatmaps(block).contiguous()
+            if hm.shape[1] != n_local:
+                raise ValueError(f"block of {hm.shape[1]} views; rank "
+                                 f"{mesh.rank} holds {n_local} of {V}")
+            rc_views = dataclasses.replace(
+                rc, whole_sample_px=rc.whole_sample_px[v0:v0 + n_local])
+            part = whole_sample(hm, rc_views, cfg, view_sum=True)
+            volumes = view_mean(mesh.all_reduce_sum(part, "view"), V)
+            det = model.propose(volumes, rc, None, True, meta)
+            heatmaps = mesh.all_gather(hm, 1, "view")
+            out = model.complete(det, heatmaps, rc, None, True)
+            return trainer.update(out, targets, meta, data)
 
     return step

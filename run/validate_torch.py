@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Validate CLI of the PyTorch port: `python run/validate_torch.py --cfg
 configs/test/tiny_synthetic.yaml [--checkpoint model.pth|model_best.msgpack]
-[--device cpu]`.
+[--device cpu] [--mesh data=2,space=2 --device cuda|cpu]`.
 
 Builds the config's test dataset, the model (and, for the image heatmap
 source, the backbone from PRETRAINED_BACKBONE), loads the checkpoint, runs
@@ -21,6 +21,13 @@ random weights. PRETRAINED_BACKBONE is the PoseResNet's, a torch state
 dict in the same layout or the reference's backbone msgpack
 (tools/convert_backbone.py); without one the image source warns and uses
 a seeded backbone.
+
+`--mesh data=N,space=M` (as run/validate.py takes it) evaluates over a
+('data', 'space') pipeline mesh of N * M ranks spawned on this host
+(engine/validate.py::validate_on_mesh): eval batches over 'data', the
+whole-space volume's x-rows over 'space' (parallel/spatial.py). It needs
+an explicit --device: `cuda` ranks share the card over gloo, with their
+tensors staged through host memory. Rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from fvp_torch.data.registry import build_dataset  # noqa: E402
 from fvp_torch.engine.checkpoint import (load_backbone_state,  # noqa: E402
                                          load_model_state)
 from fvp_torch.engine.serve import resolve_device  # noqa: E402
-from fvp_torch.engine.validate import run_validation  # noqa: E402
+from fvp_torch.engine.validate import (run_validation,  # noqa: E402
+                                       validate_on_mesh)
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose  # noqa: E402
 from fvp_torch.models.resnet import PoseResNet, seeded_state_dict  # noqa: E402
 from fvp_torch.utils.logging import create_logger  # noqa: E402
@@ -55,20 +63,37 @@ def main(argv=None) -> int:
                         help="override cfg.seed: the eval heatmap "
                              "augmentation draws and the held-out "
                              "synthetic scenes derive from it")
-    parser.add_argument("--device", default="cuda",
-                        help="'cuda' (default; raises without a card) or "
-                             "'cpu' for the plain path")
+    parser.add_argument("--device", default=None,
+                        help="'cuda' (the default; raises without a card) "
+                             "or 'cpu' for the plain path")
+    parser.add_argument("--mesh", default=None,
+                        help="pipeline mesh spec, e.g. 'data=2,space=4': "
+                             "eval batches over 'data' and the whole-space "
+                             "voxel volume's x-rows over 'space', one "
+                             "spawned rank each; needs --device")
     args = parser.parse_args(argv)
+    shape = None
+    if args.mesh:
+        spec = dict(kv.split("=") for kv in args.mesh.split(","))
+        shape = (int(spec.pop("data", 1)), int(spec.pop("space", 1)))
+        if spec:
+            parser.error(f"unknown mesh axes {sorted(spec)} "
+                         "(supported: data, space)")
+        if args.device is None:
+            parser.error("--mesh needs an explicit --device (cuda ranks "
+                         "share the card over gloo)")
 
     cfg = load_config(args.cfg)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    device = resolve_device(None if args.device in (None, "cuda")
+                            else args.device)
     cfg_name = os.path.splitext(os.path.basename(args.cfg))[0]
     logger, _ = create_logger(cfg.output_dir, cfg_name, "validate_torch")
 
-    test_ds = build_dataset(cfg.test_dataset, cfg, is_train=False)
-    logger.info(f"test: {len(test_ds)} frames on {device}")
+    if shape is None:
+        test_ds = build_dataset(cfg.test_dataset, cfg, is_train=False)
+        logger.info(f"test: {len(test_ds)} frames on {device}")
 
     torch.manual_seed(cfg.seed)      # the weights without a checkpoint
     model = FasterVoxelPose(cfg)
@@ -89,8 +114,14 @@ def main(argv=None) -> int:
             logger.warning("no PRETRAINED_BACKBONE; seeded backbone")
             backbone.load_state_dict(seeded_state_dict(backbone, cfg.seed))
 
-    res = run_validation(cfg, model, test_ds, backbone=backbone,
-                         device=device, log=logger.info)
+    if shape is None:
+        res = run_validation(cfg, model, test_ds, backbone=backbone,
+                             device=device, log=logger.info)
+    else:
+        res = validate_on_mesh(
+            cfg, model.state_dict(), cfg.test_dataset, shape, device,
+            None if backbone is None else backbone.state_dict(),
+            log=logger.info)
     if "fps" in res:
         logger.info(f"FPS (warm-up excluded): {res['fps']:.2f}  "
                     f"batch ms: {res['batch_ms']}")

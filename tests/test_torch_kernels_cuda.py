@@ -152,6 +152,29 @@ def test_whole_sample_kernel_sum_mode(dev, J, blocks):
     assert torch.equal(view_mean(whole, 3), mean)
 
 
+@pytest.mark.parametrize("J,x0,rows,view_sum", [
+    (15, 0, 4, False),
+    (15, 12, 4, True),
+    (17, 4, 8, False),
+    (15, 3, 5, False),        # N = 320 a view: a ragged last block
+])
+def test_whole_sample_kernel_row_block(dev, J, x0, rows, view_sum):
+    """K1 on a block of x-rows (the spatially sharded step's, on
+    row_block's contiguous coords), against its plain version on the same
+    block (1e-5 a view) and bit for bit the kernel's whole volume's rows:
+    the same voxels in the same arithmetic."""
+    cfg = _cfg(J, 16)
+    _, _, rc, hm = _inputs(cfg, dev, B=2)
+    block = ksamp.row_block(rc, cfg, x0, rows)
+    got = ksamp.whole_sample(hm, block, cfg, view_sum, rows=(x0, rows))
+    ref = ksamp.whole_sample_plain(hm, block, cfg, view_sum,
+                                   rows=(x0, rows))
+    assert got.shape == (2, rows, 16, 8, J)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * 3)
+    whole = ksamp.whole_sample(hm, rc, cfg, view_sum)
+    assert torch.equal(got, whole[:, x0:x0 + rows])
+
+
 def _crosses_edge(cfg, rc, corner):
     """Whether some voxel of the cube at `corner` projects off the
     heatmap in some view, and some on it."""

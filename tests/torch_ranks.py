@@ -155,3 +155,114 @@ def rank_of_a_leader(q) -> None:
     _die_with_leader()
     q.put(os.getpid())
     time.sleep(600.0)
+
+
+def spatial_rank(rank, world, coordinator, inp):
+    """One rank of a job that builds two meshes: a (1, world) 'space' mesh,
+    on which it runs sharded_nms_topk_2d on its row block of each of
+    inp['nms']'s maps and spatial_centernet on its rows of inp['bev'];
+    and a (2, world / 2) pipeline mesh, on which it runs the spatially
+    sharded eval step of a CPU Predictor of inp['variables'] on its
+    'data' block of inp['heatmaps']. Returns the results as numpy."""
+    import torch
+    import torch.distributed as dist
+
+    from fvp_torch.engine.serve import Predictor
+    from fvp_torch.models.cnns import CenterNet
+    from fvp_torch.parallel import (make_pipeline_mesh, make_spatial_eval_step,
+                                    make_spatial_mesh, shard_data,
+                                    sharded_nms_topk_2d, spatial_centernet)
+    from fvp_torch.parallel.mesh import init_distributed
+
+    init_distributed(coordinator, world, rank, "cpu")
+    try:
+        mesh = make_spatial_mesh(world)
+        pipe = make_pipeline_mesh(2, world // 2)
+        i = mesh.coords[1]
+        out = {"space": mesh.axis_ranks("space"), "pipe": pipe.coords}
+        for name, (hm, k) in inp["nms"].items():
+            xl = hm.shape[1] // world
+            got = sharded_nms_topk_2d(
+                mesh, torch.from_numpy(hm[:, i * xl:(i + 1) * xl]), k)
+            out[name] = tuple(t.numpy() for t in got)
+        net = CenterNet(inp["bev"].shape[-1]).eval()
+        net.load_state_dict(inp["centernet"])
+        xl = inp["bev"].shape[1] // world
+        with torch.inference_mode():
+            got = spatial_centernet(
+                net, torch.from_numpy(inp["bev"][:, i * xl:(i + 1) * xl]),
+                mesh)
+            out["centernet"] = tuple(t.numpy() for t in got)
+            try:                          # 10 rows a block: not by 4
+                spatial_centernet(net, torch.zeros(1, 10, 80, 15), mesh)
+                out["raised"] = None
+            except ValueError as e:
+                out["raised"] = str(e)
+        pred = Predictor(inp["cfg"], inp["variables"], inp["rig"],
+                         device="cpu")
+        step = make_spatial_eval_step(pred, pipe)
+        res = step(shard_data(pipe, inp["heatmaps"]), pred.rc)
+        out["pipeline"] = {k: v.numpy() for k, v in res.items()}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def train_rank(rank, world, coordinator, inp):
+    """One rank of an (n_data, n_view) mesh: the distributed BatchNorms on
+    its 'data' block of inp['bn']'s inputs (outputs, gradients, running
+    stats), then the sharded train step of a CPU Trainer of
+    inp['variables'] over inp['batches'] (per step its losses and the
+    model's state dict after). Returns them as numpy."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fvp_torch.engine.train import Trainer
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.blocks import BatchNorm2d, data_parallel
+    from fvp_torch.models.convert import from_jax_variables
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.parallel import (make_mesh, make_sharded_train_step,
+                                    shard_batch, shard_data)
+    from fvp_torch.parallel.mesh import Axis, init_distributed
+
+    def tensors(d):
+        return {k: torch.as_tensor(np.asarray(v)) for k, v in d.items()}
+
+    init_distributed(coordinator, world, rank, "cpu")
+    try:
+        mesh = make_mesh(*inp["shape"])
+        out = {}
+        for name, (x, g, mask) in inp["bn"].items():
+            bn = BatchNorm2d(x.shape[1]).train()
+            bn.load_state_dict(inp["bn_state"])
+            xb = torch.tensor(shard_data(mesh, x), requires_grad=True)
+            mb = None if mask is None else torch.as_tensor(
+                shard_data(mesh, mask))
+            with data_parallel(bn, Axis(mesh, "data")):
+                y = bn(xb, mb)
+            (y * torch.as_tensor(shard_data(mesh, g))).sum().backward()
+            out[name] = {"y": y.detach().numpy(), "dx": xb.grad.numpy(),
+                         "dw": bn.weight.grad.numpy(),
+                         "db": bn.bias.grad.numpy(),
+                         "mean": bn.running_mean.numpy(),
+                         "var": bn.running_var.numpy()}
+        cfg = inp["cfg"]
+        model = FasterVoxelPose(cfg)
+        model.load_state_dict(from_jax_variables(inp["variables"]))
+        trainer = Trainer(cfg, model, "cpu")
+        step = make_sharded_train_step(trainer, mesh)
+        rc = build_rig_constants(cfg, inp["rig"]).to("cpu")
+        out["steps"] = []
+        for hm, targets, meta in inp["batches"]:
+            losses = step(shard_batch(mesh, torch.as_tensor(hm)), rc,
+                          tensors(shard_data(mesh, targets)),
+                          tensors(shard_data(mesh, meta)))
+            out["steps"].append({
+                "losses": {k: float(v) for k, v in losses.items()},
+                "state": {k: v.detach().clone().numpy()
+                          for k, v in model.state_dict().items()}})
+        return out
+    finally:
+        dist.destroy_process_group()
