@@ -30,7 +30,13 @@ non-zero:
    C2CNet's plan (CTAs, columns a CTA, ring depth, barriers) and one
    launch per call; weightnet_pool's plan, its GB/s of input and two calls
    bitwise equal; soft_argmax's plan (blocks a map, threads, rows), one
-   launch per call, its GB/s and two calls bitwise equal;
+   launch per call, its GB/s and two calls bitwise equal; and the bf16
+   routes that compute_dtype='bfloat16' takes for CenterNet (24 bf16 conv
+   launches and 2 pools a call) and WeightNet's pool (mma.sync, one launch)
+   at B = 1 (frame 0's BEV map, P2PNet's features of K2's planes) and at
+   the eval batch (B = 8, P = 80), each against its plain version, with
+   its bound at bf16's rate and, as its library call, the cuDNN CenterNet
+   module in bf16 and a bf16 conv2d;
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
    every launch count set to 0 just before, checks that every kernel ran,
@@ -53,8 +59,11 @@ non-zero:
    reference's serving configuration in bench.py, `fuse_p2p` off): the
    image Predictor in bf16 for 12 frames with every launch count set to 0
    just before, checks that the stem (1 a frame), the bottleneck stage on
-   layer1 (10 conv_wgmma launches a frame), the deconv head (3 a frame)
-   and K1..K5 ran and nothing else did, prints its latency, profile and
+   layer1 (10 conv_wgmma launches a frame), the deconv head (3 a frame),
+   K1, K2, K4 and the bf16 routes of CenterNet (26 a frame) and
+   WeightNet's pool (1 a frame) ran and nothing else did, prints its
+   latency beside the same predictor's on the float32 CenterNet and pool
+   kernels (in this run), its profile and
    parts (stem, layer1, layers 2-4, head, final_layer, HDN+JLN) beside the
    float32 frame's parts of phase 5, holds view 0's heatmaps against the
    CPU's bf16 backbone and frame 0's poses against the CPU's bf16 HDN+JLN
@@ -86,7 +95,14 @@ non-zero:
    holds K1 and K2 against their plain versions on the training batch,
    the first step against the CPU (losses, gradients, BatchNorm
    statistics), and takes 2 image-source steps at batch 2 through the
-   frozen float32 ResNet-50 (stem, deconv head, K1, K2 a step);
+   frozen float32 ResNet-50 (stem, deconv head, K1, K2 a step); then the
+   same steps at compute_dtype='bfloat16' (the nets in bf16 as flax builds
+   them) from the same weights: launches, median step and peak memory
+   beside float32's, a profile by kind, and the first step's losses
+   finite and within TRAIN_BF16_LOSS_RTOL of the float32 first step's on
+   the same batch; and the scenes rendered on the host through the native
+   renderer (fvp_torch/data/native.py, built here at first use): the same
+   maps as the numpy renderer without augmentation, and its time a scene;
 10. drives the streaming service (fvp_torch/service/) at the reference's
     serving configuration: FVPConfig() at compute_dtype='bfloat16' with
     the seeded ResNet-50, the model and backbone read from torch files
@@ -98,7 +114,8 @@ non-zero:
     inference process run in this process on FRAMES seeded 5-view frames
     at 512x960 with every launch count set to 0 just before: the stem
     (1 a frame), the bottleneck stage (10 conv_wgmma a frame), the
-    deconv head (3 a frame) and K1..K5 ran and nothing else did, and
+    deconv head (3 a frame), K1, K2, K4 and the bf16 routes of CenterNet
+    and WeightNet's pool ran and nothing else did, and
     frame 0's poses equal, bit for bit, a Predictor built here from the
     same files on the same prepared frame; (c) the same weights written
     in the reference's flax msgpack layout load to the same state dicts
@@ -161,6 +178,7 @@ their own work whatever the global flags say).
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -293,6 +311,15 @@ TRAIN_PROFILE_GROUPS = [
     ("copies", ("Memcpy", "Memset")),
     ("torch ops", ("at::native",)),
 ]
+# The bf16 train steps against the float32 steps from the same weights on
+# the same batch: each loss of the first step, relative, at bf16's
+# tolerance of 2e-2 (the nets round to bf16 at flax's points).
+TRAIN_BF16_LOSS_RTOL = 2e-2
+# the host render through the native renderer: scenes rendered, and its
+# maps against the numpy renderer's without augmentation (the two sum the
+# same gaussians in another order: tests/test_torch_native.py)
+NATIVE_SCENES = 8
+NATIVE_ATOL = 1e-5
 # the image-source train steps (a smaller depth than the heatmap ones)
 TRAIN_IMAGE_BATCH = 2
 TRAIN_IMAGE_STEPS = 2
@@ -341,6 +368,15 @@ STD = np.array([0.229, 0.224, 0.225], np.float32)
 # which over up to 8192 terms stays below 1e-4 of the output's scale.
 BF16_RTOL = 2.0 ** -7
 SUM_ATOL = 1e-4
+# The bf16 routes against their plain versions on the card: CenterNet's
+# whole net at 1e-2 of its maps' scale (a bf16 flip early in the net
+# carries on, as P2PNet's; tests/test_torch_kernels_cuda.py), WeightNet's
+# pool at one bf16 ulp of its features' scale (its 9 products are exact,
+# only their sum's order differs).
+CENTERNET_BF16_RTOL = 1e-2
+WEIGHTNET_BF16_RTOL = 2.0 ** -8
+# the eval batch of the bf16 routes' phase 3 timing: B frames, P people
+EVAL_B, EVAL_P = 8, 80
 # The image path, card vs CPU: the trunk's float32 convs sum in another
 # order on each device, so a few bf16 roundings in the stem and head flip;
 # a float64 against a float32 trunk on the CPU moves the heatmaps by
@@ -696,6 +732,10 @@ def main() -> int:
         backbone_kernels(pred_img, images[0], rows)
         stage_kernel(pred_img, images[0], rows)
 
+        # the bf16 routes of CenterNet and WeightNet's pool, at B = 1 and
+        # at the eval batch
+        bf16_route_kernels(pred_bf16, pred, frames, feats, rows)
+
     # 4. the heatmap serving path: counts to 0, frames, counts read back
     outs, lat, launches = drive(pred, frames, K)
     log(f"serving path: {FRAMES} frames, launches {launches}")
@@ -752,8 +792,26 @@ def main() -> int:
     expect_per_frame(bf16_launches, {"stem": 1, "deconv_stage": 3},
                      "bf16 image path")
     expect_conv_routes(K, "bottleneck_stage", FRAMES, STAGE_ROUTES)
+    expect_per_frame(bf16_launches, {"centernet_bf16": 26,
+                                     "weightnet_pool_bf16": 1},
+                     "bf16 image path")
     bf16_steady = lat[WARMUP_FRAMES:]
     log_latency("bf16 image frame latency", lat)
+    # the same predictor on the float32 CenterNet and pool kernels (the
+    # earlier lowering), in this run
+    pred_f32r = copy.copy(pred_bf16)
+    pred_f32r.packed = {k: v for k, v in pred_bf16.packed.items()
+                        if k not in ("center_net_bf16", "weight_net_bf16")}
+    _, lat32, f32r_launches = drive(pred_f32r, img_frames, K)
+    if f32r_launches["centernet"] != FRAMES or \
+            f32r_launches["centernet_bf16"] != 0:
+        raise AssertionError(f"float32 routes: launches {f32r_launches}")
+    log_latency("bf16 image frame latency on the float32 CenterNet and "
+                "pool kernels", lat32)
+    log(f"bf16 image frame median {statistics.median(bf16_steady):.3f} ms "
+        f"on the bf16 routes against "
+        f"{statistics.median(lat32[WARMUP_FRAMES:]):.3f} ms on the float32 "
+        f"routes ({smi})")
     profile_frames(pred_bf16, img_frames)
     bf16_parts = image_breakdown(pred_bf16, img_frames[0])
     log("image frame by part, bfloat16 beside float32 (this run):")
@@ -804,7 +862,8 @@ def main() -> int:
              **sharded_launches, **spatial_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
-                 "c2cnet", "bottleneck_stage"):
+                 "c2cnet", "bottleneck_stage", "centernet_bf16",
+                 "weightnet_pool_bf16"):
         row = dict(rows[name])
         main = ("image_path" if name in IMAGE_PATH else "fuse_p2p_path"
                 if name in FUSE_PATH else "bf16_image_path")
@@ -830,6 +889,15 @@ def main() -> int:
                     "train_peak_memory_gb": train_res["peak_gb"],
                     "train_losses": train_res["losses"],
                     "train_image_step_ms": train_res["image_step_ms"],
+                    "train_bf16_step_ms": train_res["bf16_step_ms"],
+                    "train_bf16_step_ms_median":
+                        train_res["bf16_step_ms_median"],
+                    "train_bf16_peak_memory_gb": train_res["bf16_peak_gb"],
+                    "train_bf16_losses": train_res["bf16_losses"],
+                    "native_render_ms_per_scene":
+                        train_res["native_ms_per_scene"],
+                    "bf16_image_frame_ms_median_float32_routes":
+                        statistics.median(lat32[WARMUP_FRAMES:]),
                     "tf32_pose_shift_mm": eval_res["tf32_shift_mm"],
                     "service_latency_ms": service_res["latency_ms"],
                     "service_fps": service_res["fps"],
@@ -969,6 +1037,111 @@ def centernet_kernel(pc, vol, model, rows) -> None:
         " TFLOP/s")
     if per_call != 1:
         raise AssertionError(f"centernet: {per_call} launches per call")
+
+
+def bf16_route_kernels(pred16, pred, frames, feats, rows) -> None:
+    """Phase 3 for the bf16 routes (compute_dtype='bfloat16'): CenterNet
+    on frame 0's BEV map and WeightNet's pool on P2PNet's features of K2's
+    planes (B = 1), then on 8 frames' BEV maps and 80 people's features
+    (the eval batch), each against its plain version on the same inputs,
+    timed beside the plain version and one library call (the cuDNN
+    CenterNet module in bf16 on the bf16 map, a bf16 conv2d of the pool's
+    planes), with its bound at bf16's rate; CenterNet's launches per call
+    and conv routes. The rows carry B = 1's numbers and the eval batch's
+    as `eval_batch_*`."""
+    import torch
+    import torch.nn.functional as F
+    from fvp_torch.engine.packing import bf16_copy
+    from fvp_torch.ops.kernels import centernet as kcn
+    from fvp_torch.ops.kernels import sampler as ksamp
+    from fvp_torch.ops.kernels import weightnet as kwn
+
+    cfg, dev = pred16.cfg, pred16.device
+    pc = pred16.packed["center_net_bf16"]
+    pw = pred16.packed["weight_net_bf16"]
+    net16 = bf16_copy(pred16.model.pose_net.center_net,
+                      ("output_hm.2", "output_size.2"))
+    hm8 = torch.cat([torch.as_tensor(frames[i % len(frames)], device=dev)
+                     for i in range(EVAL_B)])
+    bev8 = ksamp.whole_sample(hm8, pred16.rc, cfg).amax(dim=3).contiguous()
+    reps = -(-EVAL_B * EVAL_P // feats.shape[0])
+    feats8 = feats.repeat(reps, 1, 1, 1)[:3 * EVAL_P].contiguous()
+    C = pw["w"].shape[1]
+    wconv = pw["w"][:9].t().reshape(C, 1, 3, 3).contiguous()
+    for tag, bev, f in (("", bev8[:1].contiguous(), feats),
+                        ("eval_batch_", bev8, feats8)):
+        B, H, W, J = bev.shape
+        # CenterNet's bf16 route
+        kcn.CONV_BF16.wgmma.launches = kcn.CONV_BF16.wmma.launches = 0
+        before = kcn.bf16_launches()
+        hm_k, size_k = kcn.centernet_bf16(pc, bev)
+        per_call = kcn.bf16_launches() - before
+        routes = {"wgmma": kcn.CONV_BF16.wgmma.launches,
+                  "wmma": kcn.CONV_BF16.wmma.launches}
+        hm_p, size_p = kcn.centernet_bf16_plain(pc, bev)
+        torch.cuda.synchronize()
+        scale = float(max(hm_p.abs().max(), size_p.abs().max()))
+        err = float(max((hm_k - hm_p).abs().max(),
+                        (size_k - size_p).abs().max()))
+        bev16 = bev.to(torch.bfloat16)
+        cn = {"max_abs_err": err, "tol": CENTERNET_BF16_RTOL * scale,
+              "ms": time_ms(lambda: kcn.centernet_bf16(pc, bev)),
+              "plain_ms": time_ms(lambda: kcn.centernet_bf16_plain(pc, bev)),
+              "library_ms": time_ms(lambda: net16.bev_forward(bev16))}
+        cn["bound_ms"], cn["bound_by"] = bound(
+            nbytes(bev, hm_k, size_k, *_leaves(pc)),
+            B * conv_flops(pred.packed["center_net"], H, W), PEAK_BF16)
+        log(f"centernet_bf16 {tuple(bev.shape)}: max_abs_err={err:.3e} "
+            f"tol={cn['tol']:.3e} ({CENTERNET_BF16_RTOL:.0e} x scale "
+            f"{scale:.3e}) kernel_ms={cn['ms']:.4f} plain_ms="
+            f"{cn['plain_ms']:.4f} library_ms={cn['library_ms']:.4f} (cuDNN "
+            f"CenterNet module in bf16) bound_ms={cn['bound_ms']:.4f} "
+            f"({cn['bound_by']}, bf16 at {PEAK_BF16 / 1e12:.0f} TFLOP/s); "
+            f"{per_call} launches a call, conv routes {routes}")
+        held("centernet_bf16", err, cn["tol"], f" at B = {B}")
+        if per_call != 26:
+            raise AssertionError(f"centernet_bf16: {per_call} launches a "
+                                 "call, expected 24 convs and 2 pools")
+        # WeightNet's pool, bf16 route
+        before = kwn.WEIGHTNET_POOL_BF16.launches
+        w_k = kwn.weightnet_pool_bf16(f, pw)
+        if kwn.WEIGHTNET_POOL_BF16.launches != before + 1:
+            raise AssertionError("weightnet_pool_bf16: not one launch a call")
+        w_p = kwn.weightnet_pool_bf16_plain(f, pw)
+        torch.cuda.synchronize()
+        err = float((w_k - w_p).abs().max())
+        Nn, A, Bb, _ = f.shape
+        x1 = f.permute(0, 3, 1, 2).reshape(Nn * J, 1, A, Bb) \
+            .to(torch.bfloat16).contiguous()
+        w16 = wconv.to(torch.bfloat16)
+        wn = {"max_abs_err": err,
+              "tol": WEIGHTNET_BF16_RTOL * float(w_p.abs().max()),
+              "ms": time_ms(lambda: kwn.weightnet_pool_bf16(f, pw)),
+              "plain_ms": time_ms(lambda: kwn.weightnet_pool_bf16_plain(f,
+                                                                       pw)),
+              "library_ms": time_ms(lambda: F.conv2d(x1, w16, padding=1))}
+        wn["bound_ms"], wn["bound_by"] = bound(
+            nbytes(f, w_k, *_leaves(pw)), Nn * J * A * Bb * C * 9 * 2.0,
+            PEAK_BF16)
+        log(f"weightnet_pool_bf16 {tuple(f.shape)}: max_abs_err={err:.3e} "
+            f"tol={wn['tol']:.3e} (one bf16 ulp of the scale) kernel_ms="
+            f"{wn['ms']:.4f} plain_ms={wn['plain_ms']:.4f} library_ms="
+            f"{wn['library_ms']:.4f} (bf16 conv2d alone) bound_ms="
+            f"{wn['bound_ms']:.4f} ({wn['bound_by']}); "
+            f"{nbytes(f) / wn['ms'] / 1e6:.1f} GB/s of its input; two calls "
+            f"bitwise equal "
+            f"{bool(torch.equal(kwn.weightnet_pool_bf16(f, pw), w_k))}")
+        held("weightnet_pool_bf16", err, wn["tol"], f" at N = {Nn}")
+        for name, src, tpu, m in (
+                ("centernet_bf16", "fvp_torch/csrc/conv_bf16.cu",
+                 "fvp_tpu/ops/pallas/hourglass.py:386", cn),
+                ("weightnet_pool_bf16", "fvp_torch/csrc/weightnet.cu",
+                 "fvp_tpu/ops/pallas/weightnet.py:84", wn)):
+            row = rows.setdefault(name, {"name": name, "route": "cuda",
+                                         "source": src, "replaces": tpu})
+            row.update({tag + k: v for k, v in m.items()})
+            row[tag + "shape"] = list(bev.shape if name == "centernet_bf16"
+                                      else f.shape)
 
 
 def person_planes_kernel(pred, hm, rows):
@@ -1502,7 +1675,10 @@ HEATMAP_PATH = ("whole_sample", "person_planes", "centernet", "soft_argmax",
                 "weightnet_pool")
 IMAGE_PATH = ("stem", "deconv_stage") + HEATMAP_PATH
 FUSE_PATH = HEATMAP_PATH + ("p2pnet", "c2cnet")
-BF16_IMAGE_PATH = IMAGE_PATH + ("bottleneck_stage",)
+# compute_dtype='bfloat16': CenterNet and the pool on their bf16 routes
+BF16_IMAGE_PATH = ("stem", "deconv_stage", "whole_sample", "person_planes",
+                   "soft_argmax", "centernet_bf16", "weightnet_pool_bf16",
+                   "bottleneck_stage")
 
 
 def launch_counts(K) -> dict:
@@ -1523,7 +1699,10 @@ def launch_counts(K) -> dict:
             + c["p2pnet.pool"],
             "c2cnet": c["c2cnet"],
             "bottleneck_stage": c["bottleneck_stage.wgmma"]
-            + c["bottleneck_stage.wmma"]}
+            + c["bottleneck_stage.wmma"],
+            "centernet_bf16": c["centernet_bf16.conv.wgmma"]
+            + c["centernet_bf16.conv.wmma"] + c["centernet_bf16.pool"],
+            "weightnet_pool_bf16": c["weightnet_pool_bf16"]}
 
 
 # launches per call of each conv route (ops/kernels/conv_bf16.py::
@@ -2138,12 +2317,110 @@ def train_phase(K, smi):
     train_card_vs_cpu(cfg, init_state, batches[0][1], ds)
     image_ms = train_image_steps(K, cfg, init_state, batches[0][1],
                                  ds.rigs["synthetic"], smi)
+    bf16 = train_bf16_steps(K, cfg, init_state, inputs, rc, losses[0],
+                            (med, peak), smi)
+    native_ms = native_render(cfg)
     return counts, {"step_ms": step_ms, "step_ms_median": med,
                     "peak_gb": peak, "losses": losses,
-                    "image_step_ms": image_ms,
+                    "image_step_ms": image_ms, **bf16,
+                    "native_ms_per_scene": native_ms,
                     # for phase 12: the first two batches
                     "batches": [b for _, b in batches[:2]], "cfg": cfg,
                     "rig": ds.rigs["synthetic"]}
+
+
+def train_bf16_steps(K, cfg, init_state, inputs, rc, first32, ref32,
+                     smi) -> dict:
+    """Phase 9's steps at compute_dtype='bfloat16' from the same weights
+    and batches: each launching K1 and K2 once and nothing else, the
+    losses finite, the median step and peak memory beside float32's
+    (`ref32`: its median ms and peak GB in this run), a profile of a step
+    by kind, and the first step's losses within TRAIN_BF16_LOSS_RTOL of
+    the float32 first step's (`first32`) on the same batch."""
+    import torch
+    from fvp_torch.engine.train import Trainer
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    model = FasterVoxelPose(cfg16)
+    model.load_state_dict(init_state)
+    tr = Trainer(cfg16, model, torch.device("cuda"))
+    K.reset_launches()
+    counts = launch_counts(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i, (x, targets, meta) in enumerate(inputs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ls = tr.train_step(x, rc, targets, meta)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = step_launches(K, counts, TRAIN_PATH, f"bf16 train step {i}")
+        ls = {key: float(v) for key, v in ls.items()}
+        losses.append(ls)
+        if not all(np.isfinite(v) for v in ls.values()):
+            raise AssertionError(f"bf16 train step {i}: losses {ls}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    log(f"train bf16 on {smi}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} "
+        f"warm-up, median {med:.3f} ms ({min(timed):.3f} .. "
+        f"{max(timed):.3f}), peak memory {peak:.3f} GB; float32 in this "
+        f"run {ref32[0]:.3f} ms, {ref32[1]:.3f} GB; launches {counts}")
+    log(f"train bf16 step ms: {', '.join(f'{t:.2f}' for t in step_ms)}")
+    rel = {key: abs(losses[0][key] - v) / abs(v)
+           for key, v in first32.items() if v != 0}
+    log("train bf16 first step against float32 (same weights, same batch): "
+        + ", ".join(f"{key} {losses[0][key]:.6g} vs {first32[key]:.6g} "
+                    f"({rel.get(key, 0.0):.3e})" for key in first32)
+        + f"; tol {TRAIN_BF16_LOSS_RTOL:.0e} relative")
+    profile_frames(lambda a: tr.train_step(a[0], rc, *a[1:]), [inputs[0]],
+                   n=2, unit="step", groups=TRAIN_PROFILE_GROUPS)
+    if any((first32[key] == 0) != (losses[0][key] == 0) for key in first32) \
+            or max(rel.values()) > TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError("the bf16 first step's losses differ from "
+                             "float32's beyond the tolerance")
+    return {"bf16_step_ms": step_ms, "bf16_step_ms_median": med,
+            "bf16_peak_gb": peak, "bf16_losses": losses}
+
+
+def native_render(cfg) -> float:
+    """The training scenes rendered on the host through the native
+    renderer (built here at first use): NATIVE_SCENES augmented samples,
+    finite, with people in view; without augmentation the same maps as
+    the numpy renderer within NATIVE_ATOL. Returns ms a scene."""
+    from fvp_torch.data import native
+    from fvp_torch.data.registry import build_dataset
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    host = cfg.replace(device_render=False, synthetic_num_data=NATIVE_SCENES)
+    ds = build_dataset(host.train_dataset, host, is_train=True)
+    t = time.perf_counter()
+    maps = [ds.sample(i, rng=np.random.RandomState(i))["input_heatmaps"]
+            for i in range(NATIVE_SCENES)]
+    ms = (time.perf_counter() - t) * 1e3 / NATIVE_SCENES
+    if not all(np.isfinite(m).all() for m in maps) or \
+            max(float(m.max()) for m in maps) < 0.5:
+        raise AssertionError("native render: non-finite or empty maps")
+    plain = build_dataset(host.train_dataset, host.replace(
+        synthetic_augmentation=False), is_train=True)
+    a = plain.sample(0, rng=np.random.RandomState(0))["input_heatmaps"]
+    native.ENABLED = False
+    try:
+        b = plain.sample(0, rng=np.random.RandomState(0))["input_heatmaps"]
+    finally:
+        native.ENABLED = True
+    err = float(np.abs(a - b).max())
+    log(f"native host render: {lib.name} built in {build_s:.2f} s; "
+        f"{NATIVE_SCENES} augmented scenes of {maps[0].shape} at "
+        f"{ms:.2f} ms a scene (host clock); without augmentation against "
+        f"the numpy renderer max_abs_err {err:.3e} (tol {NATIVE_ATOL:.0e})")
+    if not err <= NATIVE_ATOL:
+        raise AssertionError(f"native render differs from numpy by {err}")
+    return ms
 
 
 def pre_bn_biases(model) -> set:

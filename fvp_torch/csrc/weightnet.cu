@@ -34,6 +34,7 @@
 //   counter, reset by that block) adds the bands in band order, so two
 //   calls give the same bits.
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -201,6 +202,154 @@ __global__ void __launch_bounds__(kMaxThreads) weightnet_pool_kernel(
   if (tid == 0) counters[n] = 0;         // ready for the next call
 }
 
+
+// ---------------------------------------------------------------------------
+// K5's bf16 route: the arithmetic of the TPU kernel itself.
+//
+// fvp_tpu/ops/pallas/weightnet.py::pallas_weightnet_pool computes in bf16
+// inside (_weightnet_kernel): the padded planes round to bf16, the grouped
+// 3x3 conv is a bf16 (9J, J C) matrix product with float32 sums, the
+// affine and ReLU are float32, the result rounds to bf16 and is max pooled
+// 2x2 in bf16, and the mean over the pooled map is taken in float32. Here
+// the conv of one (n, j) map is a GEMM of (pixels) x (16 taps, 9 of them
+// real) by (16 taps) x (C = 32 channels) on mma.sync m16n8k16 (bf16
+// operands, float32 sums): the block-diagonal zeros of the TPU's matrix
+// are never formed.
+//
+// Bound on the H100: bytes (the 7.4 MB float32 planes at the flagship
+// (30, 64, 64, 15), 2.2 us at 3.35 TB/s; its 0.53 GFLOP of real products
+// are 0.5 us at 989 TFLOP/s bf16). Design, simple first:
+// - one block of 4 warps per (n, j) map: it rounds the map into a
+//   zero-padded (A + 2) x (B + 2) bf16 tile in shared memory (strided
+//   loads; the J blocks of one n run side by side and share their lines
+//   in L2);
+// - an M tile is a patch of 2 rows x 8 columns, so a thread's two
+//   accumulator rows (g and g + 8) are the two rows of one pooling window
+//   and the window's other column sits in lane ^ 4: the 2x2 max is one
+//   fmaxf and one shuffle on the rounded values, and a quarter of the
+//   pixels' work reaches the sums;
+// - the A fragment is read straight from the tile (tap t = 3 dy + dx is
+//   an offset), the B fragments (all 32 channels) sit in registers;
+// - the mean in a fixed order: each thread sums its pooled cells in turn,
+//   then one thread per channel adds the threads' sums in thread order.
+constexpr int kB16Threads = 128;
+
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kB16Threads) weightnet_pool_bf16_kernel(
+    const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ aff, float* __restrict__ out, int A, int B,
+    int J, int tile_elems) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smraw);
+  float* red = reinterpret_cast<float*>(smraw + 2 * tile_elems);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.x / J, j = blockIdx.x - n * J;
+  const int Bp = B + 2;
+
+  // the map, rounded to bf16, in its zero halo
+  const float* src = x + (long long)n * A * B * J + j;
+  for (int i = tid; i < (A + 2) * Bp; i += kB16Threads) {
+    const int r = i / Bp, c = i - r * Bp;
+    float v = 0.f;
+    if (r >= 1 && r <= A && c >= 1 && c <= B)
+      v = __ldg(src + ((long long)(r - 1) * B + (c - 1)) * J);
+    tile[i] = __float2bfloat16_rn(v);
+  }
+  // B fragments of the 4 n8 tiles: taps k = 2t, 2t + 1 (b0) and 2t + 8,
+  // 2t + 9 (b1) of channel 8 nt + g; w is (16, C) with taps 9.. zero
+  uint32_t b0[4], b1[4];
+  float sc[8], sh[8], sum[8];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int ch = 8 * nt + g;
+    b0[nt] = bf16_pair(w[(2 * t) * kC + ch], w[(2 * t + 1) * kC + ch]);
+    b1[nt] = bf16_pair(w[(2 * t + 8) * kC + ch], w[(2 * t + 9) * kC + ch]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[2 * nt + e] = __ldg(aff + 8 * nt + 2 * t + e);
+      sh[2 * nt + e] = __ldg(aff + kC + 8 * nt + 2 * t + e);
+      sum[2 * nt + e] = 0.f;
+    }
+  }
+  // this thread's taps in the tile: k -> (k / 3) rows + k % 3 columns
+  int off[4];
+  bool real[4];
+  {
+    const int ks[4] = {2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      real[q] = ks[q] < 9;
+      off[q] = real[q] ? (ks[q] / 3) * Bp + ks[q] % 3 : 0;
+    }
+  }
+  __syncthreads();
+
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int cols = (B + 7) / 8, patches = (A / 2) * cols;
+  for (int p = warp; p < patches; p += kB16Threads / 32) {
+    const int py = 2 * (p / cols), px = 8 * (p - (p / cols) * cols) + g;
+    const bool valid = px < B;
+    // rows g and g + 8 of the M tile: pixels (py, px) and (py + 1, px);
+    // their window's top-left tap sits at tile (py, px)
+    const __nv_bfloat16* top = tile + py * Bp + px;
+    const __nv_bfloat16* bot = top + Bp;
+    __nv_bfloat16 v[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[q] = valid && real[q] ? top[off[q]] : zero;
+      v[4 + q] = valid && real[q] ? bot[off[q]] : zero;
+    }
+    const uint32_t a0 = bf16_pair(v[0], v[1]), a1 = bf16_pair(v[4], v[5]);
+    const uint32_t a2 = bf16_pair(v[2], v[3]), a3 = bf16_pair(v[6], v[7]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_16816(c, a0, a1, a2, a3, b0[nt], b1[nt]);
+      // c0, c1: (py, px) channels 8 nt + 2t, + 1; c2, c3: (py + 1, px)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 2 * nt + e;
+        const float hi = __bfloat162float(__float2bfloat16_rn(fmaxf(
+            __fadd_rn(__fmul_rn(c[e], sc[q]), sh[q]), 0.f)));
+        const float lo = __bfloat162float(__float2bfloat16_rn(fmaxf(
+            __fadd_rn(__fmul_rn(c[2 + e], sc[q]), sh[q]), 0.f)));
+        float m = fmaxf(hi, lo);
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        if (valid && !(g & 1)) sum[q] += m;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) red[tid * 8 + q] = sum[q];
+  __syncthreads();
+  if (tid < kC) {
+    // channel tid: n8 tile nt, thread column t, element e
+    const int nt = tid / 8, t2 = (tid % 8) / 2, e = tid % 2;
+    float a = 0.f;
+    for (int wp = 0; wp < kB16Threads / 32; ++wp)
+      for (int g2 = 0; g2 < 8; g2 += 2)
+        a += red[(wp * 32 + g2 * 4 + t2) * 8 + 2 * nt + e];
+    out[((long long)n * J + j) * kC + tid] = a / (float)((A / 2) * (B / 2));
+  }
+}
+
 }  // namespace
 
 // x (N, A, B, J); w (9, C) taps row-major over (dy, dx); scale, shift (C,);
@@ -237,5 +386,31 @@ FVP_API int fvp_weightnet_pool(const float* x, const float* w,
                           (cudaStream_t)stream>>>(
       x, w, scale, shift, partial, counters, out, A, B, J, rows, bands,
       joints, reps, plane, vec);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 route: x (N, A, B, J) float32; w (16, C) bf16, taps row-major
+// over (dy, dx), rows 9.. zero; aff (2, C) float32 (scale, shift); out (N,
+// J, C) float32. C == 32, A and B even; one block of 128 threads per (n,
+// j) map.
+FVP_API int fvp_weightnet_pool_bf16(const float* x, const void* w,
+                                    const float* aff, float* out, int N,
+                                    int A, int B, int J, int C,
+                                    void* stream) {
+  if (C != kC || N <= 0 || J <= 0 || A < 2 || B < 2 || A % 2 || B % 2)
+    return (int)cudaErrorInvalidValue;
+  const int tile_elems = ((A + 2) * (B + 2) + 7) / 8 * 8;
+  const size_t smem = 2 * (size_t)tile_elems + sizeof(float) * kB16Threads * 8;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        weightnet_pool_bf16_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  weightnet_pool_bf16_kernel<<<N * J, kB16Threads, smem,
+                               (cudaStream_t)stream>>>(
+      x, static_cast<const __nv_bfloat16*>(w), aff, out, A, B, J,
+      tile_elems);
   return (int)cudaGetLastError();
 }

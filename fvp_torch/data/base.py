@@ -14,11 +14,15 @@ The three heatmap sources mirror the reference (config.py:38-40):
   'gt'    — gaussians rendered at projected GT joints (mock backbone),
   'pred'  — gaussians rendered at offline 2D detections.
 
-Host rendering runs the numpy renderer (data/heatmaps.py); the reference
-package prefers its native C++ renderer where one is built, whose
-augmentation draws come from another stream. Every draw from `rng` is
-taken in the reference package's order (its native seeds included), so a
-seeded sample is bit for bit the reference package's numpy-path sample.
+Host rendering runs the native C++ renderer (data/native.py), as the
+reference package does where its library is built: each augmented view
+draws the renderer's seed from `rng`, and the renderer draws its
+augmentation from that seed. With the native path switched off
+(`native.ENABLED = False`) the numpy renderer (data/heatmaps.py) draws
+from `rng` after the seed, as the reference package's fallback does.
+Every draw from `rng` is taken in the reference package's order, so a
+seeded sample is bit for bit the reference package's, native path on or
+off on both sides.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 
 from fvp_torch.config import FVPConfig
+from fvp_torch.data import native
 from fvp_torch.data.heatmaps import (
     compute_human_scale, generate_input_heatmap,
 )
@@ -36,12 +41,18 @@ from fvp_torch.geometry.cameras import CameraRig, project_points_np
 from fvp_torch.geometry.transforms import affine_apply, get_resize_transform
 
 
-def _skip_native_seed(rng, augment: bool) -> None:
-    """The draw the reference package takes, per augmented view, for its
-    native renderer's seed, taken and dropped so that every later draw of
-    `rng` is the reference package's."""
-    if augment:
-        rng.randint(0, 2 ** 31)
+def _render(cfg, joints, joints_vis, augment: bool, rng) -> np.ndarray:
+    """One view's heatmaps (J, hm_h, hm_w): the native renderer from the
+    seed drawn from `rng` (per augmented view, as the reference package
+    draws it), or the numpy renderer from `rng` where the native path is
+    off or there is nobody."""
+    seed = int(rng.randint(0, 2 ** 31)) if augment else 0
+    hm = native.generate_input_heatmap_native(cfg, joints, joints_vis,
+                                              augment=augment, seed=seed)
+    if hm is None:
+        hm = generate_input_heatmap(cfg, joints, joints_vis=joints_vis,
+                                    augment=augment, rng=rng)
+    return hm
 
 
 class PoseDataset:
@@ -127,10 +138,7 @@ class PoseDataset:
         augment = self.data_augmentation
         out = []
         for joints_2d, joints_vis in zip(views_2d, views_vis):
-            _skip_native_seed(rng, augment)
-            out.append(generate_input_heatmap(
-                cfg, joints_2d, joints_vis=joints_vis, augment=augment,
-                rng=rng))
+            out.append(_render(cfg, joints_2d, joints_vis, augment, rng))
         return np.stack(out)
 
     def pack_render_params(self, views_2d, views_vis, rng) -> dict:
@@ -213,9 +221,7 @@ class PoseDataset:
         augment = self.data_augmentation
         out = []
         for mapped in self._mapped_pred_views(rec):
-            _skip_native_seed(rng, augment)
-            out.append(generate_input_heatmap(self.cfg, mapped,
-                                              augment=augment, rng=rng))
+            out.append(_render(self.cfg, mapped, None, augment, rng))
         return np.stack(out)
 
     # ------------------------------------------------------------------

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fvp_torch.models.blocks import ResBlock, UpsampleBlock
+from fvp_torch.models.blocks import ResBlock, UpsampleBlock, set_compute_dtype
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
 from fvp_torch.models.resnet import Bottleneck
 from fvp_torch.ops.kernels.c2cnet import pack_fragments
@@ -110,6 +110,19 @@ def pack_weightnet(net: WeightNet) -> dict:
             "scale": scale.contiguous(), "shift": shift.contiguous()}
 
 
+@torch.no_grad()
+def pack_weightnet_bf16(net: WeightNet) -> dict:
+    """WeightNet's conv front end for the bf16 route
+    (ops/kernels/weightnet.py::weightnet_pool_bf16): "w" (16, C) bf16, the
+    9 taps row-major over (dy, dx) and 7 zero rows (the k16 of an mma),
+    "aff" (2, C) float32 folded as the reference folds (`_fold`)."""
+    conv, bn = net.heatmap_feature_net[0], net.heatmap_feature_net[1]
+    C = conv.weight.shape[0]
+    w = torch.zeros((16, C), dtype=torch.bfloat16, device=conv.weight.device)
+    w[:9] = conv.weight.detach().reshape(C, 9).t().to(torch.bfloat16)
+    return {"w": w, "aff": _fold(conv.bias, bn).contiguous()}
+
+
 def bn_affine(bn: nn.BatchNorm2d) -> torch.Tensor:
     """BatchNorm running stats folded into a (2, F) float32 (a, b) affine:
     a = gamma / sqrt(var + 1e-5), b = beta - mean * a."""
@@ -168,7 +181,10 @@ def bf16_copy(module: nn.Module, keep_float: tuple[str, ...] = ()
     to bf16. The submodules named in `keep_float` (the task nets' 1x1
     heads, which take a float32 input) stay float32. The module itself is
     left as it is."""
-    net = copy.deepcopy(module)
+    # the copy computes as torch's own modules on its bf16 weights, its
+    # BatchNorms in float32 on the bf16 input (not the modules' own bf16
+    # mode: models/blocks.py)
+    net = set_compute_dtype(copy.deepcopy(module), "float32")
     kept = {id(m) for name in keep_float
             for m in net.get_submodule(name).modules()}
     for m in net.modules():
@@ -266,6 +282,31 @@ def pack_p2pnet(net: P2PNet) -> dict:
 
 
 @torch.no_grad()
+def pack_centernet_bf16(net: CenterNet) -> dict:
+    """CenterNet for its bf16 route (ops/kernels/centernet.py::
+    centernet_bf16): the hourglass layers as in pack_p2pnet, "heads" the
+    two heads' 3x3 convs as one 32 -> 64 layer (hm's channels first) and
+    "out" their 1x1 convs as one 64 -> 3 layer, hm's weights on channels
+    0..31 of output 0 and size's on channels 32..63 of outputs 1-2, zeros
+    elsewhere (exact zeros in the sums); (1, bias) affines."""
+    packed = _hourglass_bf16(net)
+    hm0, size0 = _layer_bf16(net.output_hm[0]), _layer_bf16(
+        net.output_size[0])
+    packed["heads"] = {k: torch.cat([hm0[k], size0[k]], dim=-1)
+                       .contiguous() for k in ("w", "aff")}
+    hm1, size1 = _layer_bf16(net.output_hm[2]), _layer_bf16(
+        net.output_size[2])
+    c = hm1["w"].shape[1]
+    w = torch.zeros((1, 2 * c, 3), dtype=torch.bfloat16,
+                    device=hm1["w"].device)
+    w[0, :c, :1] = hm1["w"][0]
+    w[0, c:, 1:] = size1["w"][0]
+    packed["out"] = {"w": w, "aff": torch.cat([hm1["aff"], size1["aff"]],
+                                              dim=1).contiguous()}
+    return packed
+
+
+@torch.no_grad()
 def pack_c2cnet(net: C2CNet) -> dict:
     """C2CNet for ops/kernels/c2cnet.py: the layers as in pack_p2pnet, each
     a view into "w_flat" (bf16) and "aff_flat" (float32), in the order of
@@ -312,7 +353,8 @@ def pack_model(model, compute_dtype: str = "float32") -> dict:
     For `compute_dtype='bfloat16'` their cuDNN modules (the path without
     `fuse_p2p`, and shapes its kernels do not take) are packed as well, as
     `bf16_copy`s with their 1x1 heads in float32: "bf16_nets" {"c2c_net",
-    "conv_net"}."""
+    "conv_net"}; and CenterNet and WeightNet's front end for their bf16
+    routes: "center_net_bf16", "weight_net_bf16"."""
     check_compute_dtype(compute_dtype)
     packed = {"center_net": pack_centernet(model.pose_net.center_net),
               "weight_net": pack_weightnet(model.joint_net.weight_net)}
@@ -320,6 +362,10 @@ def pack_model(model, compute_dtype: str = "float32") -> dict:
         packed["p2p_net"] = pack_p2pnet(model.joint_net.conv_net)
         packed["c2c_net"] = pack_c2cnet(model.pose_net.c2c_net)
     if compute_dtype == "bfloat16":
+        packed["center_net_bf16"] = pack_centernet_bf16(
+            model.pose_net.center_net)
+        packed["weight_net_bf16"] = pack_weightnet_bf16(
+            model.joint_net.weight_net)
         packed["bf16_nets"] = {
             "c2c_net": bf16_copy(model.pose_net.c2c_net, ("output_hm",)),
             "conv_net": bf16_copy(model.joint_net.conv_net,

@@ -9,7 +9,8 @@ the caller passes a device; without a card and without an explicit device
 it raises rather than fall back to the host. `cfg.compute_dtype` is
 'float32' or 'bfloat16' (the reference's serving configuration: the
 backbone's trunk and the cuDNN task nets in bf16, on the copies that
-engine/packing.py::bf16_copy makes at load time); any other raises.
+engine/packing.py::bf16_copy makes at load time, CenterNet and
+WeightNet's pool on their bf16 routes); any other raises.
 
 float32 means float32 on the card too: the entry points (Predictor,
 Engine.heatmaps, the eval step of engine/validate.py, the trainer of

@@ -29,7 +29,13 @@ The step takes heatmaps (B, V, J, H, W), a render-parameter dict (the
 device splat, ops/heatmap_render.py) or, with a backbone, normalised
 images (B, V, H, W, 3) run through the frozen, eval-mode backbone without
 gradient, as engine/serve.py::backbone_heatmaps serves them (its stem and
-deconv kernels on the card). It computes float32 without TF32
+deconv kernels on the card). It trains at `compute_dtype` 'float32' or
+'bfloat16', as the reference's make_train_step does: under 'bfloat16' the
+four nets compute in bf16 as flax builds them (models/blocks.py: convs on
+bf16 operands, BatchNorms with float32 statistics rounding to bf16, the
+1x1 output heads float32), the backbone serves in bf16, and the
+parameters, gradients, both Adams, the soft-argmax and the losses stay
+float32. Whatever is float32 computes without TF32
 (engine/serve.py::float32_math); any other `compute_dtype` raises.
 """
 
@@ -40,7 +46,7 @@ from typing import Mapping
 import torch
 
 from fvp_torch.config import FVPConfig
-from fvp_torch.engine.packing import pack_backbone
+from fvp_torch.engine.packing import check_compute_dtype, pack_backbone
 from fvp_torch.engine.serve import (backbone_heatmaps, float32_math,
                                     resolve_device)
 from fvp_torch.engine.validate import RENDER_KEYS, batch_input
@@ -112,9 +118,7 @@ class Trainer:
 
     def __init__(self, cfg: FVPConfig, model: FasterVoxelPose, device=None,
                  backbone: PoseResNet | None = None):
-        if cfg.compute_dtype != "float32":
-            raise ValueError(f"training computes float32; compute_dtype "
-                             f"{cfg.compute_dtype!r} is not trained here")
+        check_compute_dtype(cfg.compute_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
@@ -132,7 +136,8 @@ class Trainer:
         if backbone is not None:
             self.backbone = backbone.eval().to(self.device)
             self.backbone.requires_grad_(False)
-            self.backbone_packed = pack_backbone(self.backbone, "float32")
+            self.backbone_packed = pack_backbone(self.backbone,
+                                                 cfg.compute_dtype)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -12,6 +12,17 @@ train mode the reference package's two conventions (fvp_tpu/models/
 blocks.py): flax's `nn.BatchNorm` without a mask, and `MaskedBatchNorm`'s
 per-group masked statistics with a (G, M) mask, which every block takes
 and hands to its BatchNorms.
+
+The convs and BatchNorms here carry a `compute_dtype` (float32 unless
+`set_compute_dtype` says otherwise): in bf16 they compute as the
+reference's flax modules built with `dtype=bfloat16` do, in train and in
+eval mode, their parameters (and so their gradients) staying float32. A
+conv casts its input, weight and bias to bf16 at use, rounds its float32
+sums to bf16 and then adds the bias in bf16, as flax's `nn.Conv` does; a
+BatchNorm takes its statistics and normalises in float32 and rounds its
+output to bf16, as flax's `nn.BatchNorm` and `MaskedBatchNorm` do. ReLU,
+max pool and the residual and skip adds then run on bf16 tensors, as
+flax's do. No autocast: the rounding points are these, module by module.
 """
 
 from __future__ import annotations
@@ -118,12 +129,22 @@ def masked_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     return y.reshape(x.shape)
 
 
+_BF16 = torch.bfloat16
+
+
 class _TrainBN:
     # the 'data' axis of the data-parallel train step, or None
     data = None
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
                 ) -> torch.Tensor:
+        if self.compute_dtype == _BF16:
+            return self._forward(x.float(), mask).to(_BF16)
+        return self._forward(x, mask)
+
+    def _forward(self, x: torch.Tensor, mask: torch.Tensor | None
+                 ) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if mask is not None:
@@ -157,8 +178,73 @@ class BatchNorm1d(_TrainBN, nn.BatchNorm1d):
     (`batch_norm_train`, `masked_batch_norm`)."""
 
 
+class _TypedConv:
+    """A conv with the reference's bf16 mode (flax's `nn.Conv` with
+    `dtype=bfloat16`, see the module docstring); float32 as torch's
+    own otherwise."""
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype != _BF16:
+            return super().forward(x)
+        y = self.product(x.to(_BF16), self.weight.to(_BF16))
+        return add_bias_bf16(y, self.bias)
+
+    def product(self, x, w):
+        """The conv without its bias, on `x` and `w` as given."""
+        return self._conv_forward(x, w, None)
+
+
+def add_bias_bf16(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A bf16 conv output (N, C, ...) plus its bias rounded to bf16, the
+    sum in bf16: flax's bias add under `dtype=bfloat16`."""
+    return y + bias.to(_BF16).reshape(-1, *[1] * (y.dim() - 2))
+
+
+class Conv1d(_TypedConv, nn.Conv1d):
+    pass
+
+
+class Conv2d(_TypedConv, nn.Conv2d):
+    def product(self, x, w, padding=None):
+        """`padding`: another than the module's (the spatial path's halo
+        convs pad y alone)."""
+        return F.conv2d(x, w, None, self.stride,
+                        self.padding if padding is None else padding,
+                        self.dilation, self.groups)
+
+
+class ConvTranspose1d(_TypedConv, nn.ConvTranspose1d):
+    def product(self, x, w):
+        return F.conv_transpose1d(x, w, None, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class ConvTranspose2d(_TypedConv, nn.ConvTranspose2d):
+    def product(self, x, w):
+        return F.conv_transpose2d(x, w, None, self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
+def set_compute_dtype(net: nn.Module, compute_dtype: str) -> nn.Module:
+    """Set the `compute_dtype` ('float32' or 'bfloat16') of every conv and
+    BatchNorm of this module's types in `net` (the task nets' 1x1 output
+    convs are torch's own: float32 on a float32 input, as the reference
+    computes them)."""
+    dtypes = {"float32": torch.float32, "bfloat16": _BF16}
+    if compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: the nets compute "
+                         "in float32 or bfloat16")
+    for m in net.modules():
+        if isinstance(m, (_TypedConv, _TrainBN)):
+            m.compute_dtype = dtypes[compute_dtype]
+    return net
+
+
 def _conv(dims: int, cin: int, cout: int, k: int) -> nn.Module:
-    cls = nn.Conv2d if dims == 2 else nn.Conv1d
+    cls = Conv2d if dims == 2 else Conv1d
     return cls(cin, cout, k, padding=k // 2)
 
 
@@ -212,7 +298,7 @@ class UpsampleBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, dims: int = 2):
         super().__init__()
-        cls = nn.ConvTranspose2d if dims == 2 else nn.ConvTranspose1d
+        cls = ConvTranspose2d if dims == 2 else ConvTranspose1d
         self.block = nn.Sequential(cls(cin, cout, 2, stride=2),
                                    _bn(dims, cout), nn.ReLU(inplace=True))
 

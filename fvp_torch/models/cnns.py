@@ -25,10 +25,15 @@ CenterNet's and C2CNet's over the whole batch, P2PNet's and WeightNet's
 per scene over the matched people of a (B, 3K) mask, as the reference's
 train branch runs them (fvp_tpu/models/faster_voxelpose.py:295-327).
 
-Under `compute_dtype='bfloat16'` C2CNet and P2PNet run as bf16 copies
-(engine/packing.py::bf16_copy) up to their 1x1 output convs, which take a
-float32 input and float32 weights, as the reference's heads do
-(fvp_tpu/models/cnns.py: `x.astype(jnp.float32)`).
+Under `compute_dtype='bfloat16'` the serving path runs C2CNet and P2PNet
+as bf16 copies (engine/packing.py::bf16_copy) up to their 1x1 output
+convs, which take a float32 input and float32 weights, as the reference's
+heads do (fvp_tpu/models/cnns.py: `x.astype(jnp.float32)`). The modules
+themselves compute in bf16 under that dtype (`set_compute_dtype`, which
+FasterVoxelPose calls): every conv and BatchNorm but the 1x1 output heads,
+torch's own float32 convs, as the reference builds its nets with
+`dtype=bfloat16` for training too; WeightNet's spatial mean and MLP stay
+float32, as the reference's do.
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fvp_torch.models.blocks import (BasicBlock, BatchNorm2d, EncoderDecoder,
-                                     ResBlock)
+from fvp_torch.models.blocks import (BasicBlock, BatchNorm2d, Conv2d,
+                                     EncoderDecoder, ResBlock)
 
 
 class CenterNet(nn.Module):
@@ -47,10 +52,10 @@ class CenterNet(nn.Module):
                                           ResBlock(16, 32))
         self.encoder_decoder = EncoderDecoder(dims=2)
         self.output_hm = nn.Sequential(
-            nn.Conv2d(32, head_conv, 3, padding=1), nn.ReLU(inplace=True),
+            Conv2d(32, head_conv, 3, padding=1), nn.ReLU(inplace=True),
             nn.Conv2d(head_conv, 1, 1))
         self.output_size = nn.Sequential(
-            nn.Conv2d(32, head_conv, 3, padding=1), nn.ReLU(inplace=True),
+            Conv2d(32, head_conv, 3, padding=1), nn.ReLU(inplace=True),
             nn.Conv2d(head_conv, 2, 1))
 
     def forward(self, volume: torch.Tensor):
@@ -60,9 +65,10 @@ class CenterNet(nn.Module):
         """From the BEV map (B, X, Y, J), the volume's max over z."""
         x = bev.permute(0, 3, 1, 2)                     # (B, J, X, Y)
         x = self.encoder_decoder(self.front_layers(x))
-        hm = self.output_hm(x).permute(0, 2, 3, 1)
-        size = self.output_size(x).permute(0, 2, 3, 1)
-        return hm, size
+
+        def head(h):
+            return h[2](h[1](h[0](x)).float()).permute(0, 2, 3, 1)
+        return head(self.output_hm), head(self.output_size)
 
 
 class C2CNet(nn.Module):
@@ -103,7 +109,7 @@ class WeightNet(nn.Module):
     def __init__(self, feat_channels: int = 32, hidden_channels: int = 64):
         super().__init__()
         self.heatmap_feature_net = nn.Sequential(
-            nn.Conv2d(1, feat_channels, 3, padding=1),
+            Conv2d(1, feat_channels, 3, padding=1),
             BatchNorm2d(feat_channels), nn.MaxPool2d(2),
             nn.ReLU(inplace=True))
         self.output = nn.Sequential(
@@ -120,7 +126,7 @@ class WeightNet(nn.Module):
         x = x.permute(0, 3, 1, 2).reshape(n * j, 1, a, b)
         conv, bn, pool, relu = self.heatmap_feature_net
         jmask = None if mask is None else mask.repeat_interleave(j, dim=1)
-        x = relu(pool(bn(conv(x), jmask))).mean(dim=(2, 3))
+        x = relu(pool(bn(conv(x), jmask))).float().mean(dim=(2, 3))
         return x.reshape(n, j, -1)
 
     def head(self, pooled: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,14 @@ the z axis is a multiple of 4 (`ops/kernels/c2cnet.py`), P2PNet when
 `hourglass_supported` accepts the plane shape (`ops/kernels/hourglass.py`).
 The reference also asks for its Pallas samplers there; the port always
 samples in its kernels, so that condition has no counterpart. CenterNet
-and WeightNet's conv front end run on their float32 kernels under either
-dtype (the reference computes them in bf16 under 'bfloat16'); the
-soft-argmax reads P2PNet's float32 output.
+and WeightNet's conv front end run on their float32 kernels, and under
+'bfloat16' on their bf16 routes (the packed weights hold
+"center_net_bf16" and "weight_net_bf16"), which compute as the
+reference's TPU kernels do; the soft-argmax reads P2PNet's float32
+output.
 
-Train mode (`train=True`, the module in train mode, float32) is the
+Train mode (`train=True`, the module in train mode; under 'bfloat16' the
+nets compute in bf16 as flax builds them, models/blocks.py) is the
 reference's train branch: the samplers K1 and K2 as in eval (their inputs
 carry no gradient), the four nets as their modules with batch-statistic
 BatchNorm (P2PNet and WeightNet per scene over the matched people, on the
@@ -45,14 +48,16 @@ from torch import nn
 
 from fvp_torch.config import FVPConfig
 from fvp_torch.geometry.grids import RigConstants
+from fvp_torch.models.blocks import set_compute_dtype
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
 from fvp_torch.ops import softargmax as plain_softargmax
 from fvp_torch.ops.kernels.c2cnet import c2cnet
-from fvp_torch.ops.kernels.centernet import centernet_forward
+from fvp_torch.ops.kernels.centernet import centernet_bf16, centernet_forward
 from fvp_torch.ops.kernels.hourglass import hourglass_supported, p2pnet
 from fvp_torch.ops.kernels.sampler import person_planes, whole_sample
 from fvp_torch.ops.kernels.softargmax import soft_argmax
-from fvp_torch.ops.kernels.weightnet import weightnet_pool
+from fvp_torch.ops.kernels.weightnet import (weightnet_pool,
+                                             weightnet_pool_bf16)
 from fvp_torch.ops.nms import nms_topk_2d
 
 
@@ -103,6 +108,9 @@ class FasterVoxelPose(nn.Module):
         self.joint_net.conv_net = P2PNet(J)
         self.joint_net.weight_net = WeightNet(cfg.num_channel_joint_feat,
                                               cfg.num_channel_joint_hidden)
+        for net in (self.pose_net.center_net, self.pose_net.c2c_net,
+                    self.joint_net.conv_net, self.joint_net.weight_net):
+            set_compute_dtype(net, cfg.compute_dtype)
 
     # ------------------------------------------------------------------
     def detect(self, heatmaps, rc: RigConstants, packed: dict | None,
@@ -128,7 +136,11 @@ class FasterVoxelPose(nn.Module):
             hm2d, bbox_map = self.pose_net.center_net(volumes)
         else:
             bev = volumes.amax(dim=3)                        # (B, X, Y, J)
-            hm2d, bbox_map = centernet_forward(packed["center_net"], bev)
+            if "center_net_bf16" in packed:
+                hm2d, bbox_map = centernet_bf16(packed["center_net_bf16"],
+                                                bev)
+            else:
+                hm2d, bbox_map = centernet_forward(packed["center_net"], bev)
         confs2d, xy, flat = nms_topk_2d(hm2d[..., 0].detach(), K)
 
         bbox_flat = bbox_map.reshape(B, nx * ny, 2)
@@ -220,7 +232,12 @@ class FasterVoxelPose(nn.Module):
                                    self.joint_net.conv_net, flat)
             coords, confs = soft_argmax(feats.reshape(3, B * K, n * n, J),
                                         rc.center_grid, cfg.beta)
-            pooled = weightnet_pool(feats, packed["weight_net"])  # (3BK, J, C)
+            if "weight_net_bf16" in packed:
+                pooled = weightnet_pool_bf16(feats,
+                                             packed["weight_net_bf16"])
+            else:
+                pooled = weightnet_pool(feats, packed["weight_net"])
+            # pooled: (3BK, J, C)
             weights = self.joint_net.weight_net.head(pooled).reshape(
                 3, B * K, J, 1)
         off = offsets.reshape(B * K, 1, 3)

@@ -90,7 +90,9 @@ def all_kernels() -> dict[str, Kernel]:
     ks = [stem.STEM, deconv_head.DECONV, sampler.WHOLE_SAMPLE,
           sampler.WHOLE_SAMPLE_SUM, sampler.PERSON_LAYOUT,
           sampler.PERSON_PLANES, centernet.CENTERNET, softargmax.SOFT_ARGMAX,
-          weightnet.WEIGHTNET_POOL,
+          weightnet.WEIGHTNET_POOL, weightnet.WEIGHTNET_POOL_BF16,
+          centernet.CONV_BF16.wgmma, centernet.CONV_BF16.wmma,
+          centernet.POOL_BF16,
           hourglass.CONV.wgmma, hourglass.CONV.wmma, hourglass.POOL, c2cnet.C2C,
           trunk.CONV.wgmma, trunk.CONV.wmma]
     return {k.name: k for k in ks}

@@ -26,6 +26,17 @@ int32 tables (ops, stages). `packed["flat"]` holds every weight in one
 float32 buffer (engine/packing.py::pack_centernet), the intermediates live
 in one arena the wrapper allocates with torch.empty, and hm and size are
 views into it.
+
+`centernet_bf16` is the bf16 route that `compute_dtype='bfloat16'` takes:
+the arithmetic of the TPU kernel (fvp_tpu/ops/pallas/hourglass.py::
+_centernet_kernel), which computes in bf16 inside. It runs the hourglass
+body on the bf16 conv kernels of csrc/conv_bf16.cu, as the `fuse_p2p`
+P2PNet does (ops/kernels/hourglass.py::body: the same rounding points),
+then the two heads' 3x3 convs as one 32 -> 64 conv rounded to bf16 after
+its bias and ReLU, and their 1x1 convs as one 64 -> 3 conv (block-diagonal
+weights) that sums in float32 and adds its float32 bias: 24 conv launches
+and 2 pools a call. Its `packed` comes from
+engine/packing.py::pack_centernet_bf16.
 """
 
 from __future__ import annotations
@@ -38,8 +49,12 @@ import torch
 import torch.nn.functional as F
 
 from fvp_torch.ops.kernels import Kernel, check, ptr
+from fvp_torch.ops.kernels import conv_bf16, hourglass
 
 CENTERNET = Kernel("centernet", "fvp_centernet")
+CONV_BF16 = conv_bf16.conv_kernel("centernet_bf16.conv")
+POOL_BF16 = conv_bf16.pool_kernel("centernet_bf16.pool")
+_CUDA_BF16 = conv_bf16.make_ops(CONV_BF16, POOL_BF16)
 
 THREADS = 256
 WARPS = THREADS // 32
@@ -527,3 +542,36 @@ def centernet_forward(packed: dict, bev: torch.Tensor):
                         device=bev.device)
     launch(packed, bev, arena)
     return outputs(plan, arena)
+
+
+# -- the bf16 route ------------------------------------------------------------
+
+def bf16_launches() -> int:
+    return CONV_BF16.launches + POOL_BF16.launches
+
+
+def run_bf16(packed: dict, bev: torch.Tensor, ops):
+    """The bf16 CenterNet through `ops` (conv_bf16.PLAIN or the kernels'
+    ops): (B, X, Y, J) -> (hm (B, X, Y, 1), size (B, X, Y, 2)) float32."""
+    x = hourglass.body(packed, bev, ops)
+    h = ops.conv(x, packed["heads"], relu=True)
+    out = ops.conv(h, packed["out"], out_dtype=torch.float32)
+    return out[..., :1].contiguous(), out[..., 1:].contiguous()
+
+
+def centernet_bf16_plain(packed: dict, bev: torch.Tensor):
+    """Plain version of the bf16 route, on any device."""
+    return run_bf16(packed, bev, conv_bf16.PLAIN)
+
+
+def centernet_bf16(packed: dict, bev: torch.Tensor):
+    """CenterNet's bf16 route on the BEV map (B, X, Y, J) float32 -> (hm
+    (B, X, Y, 1), size (B, X, Y, 2)) float32: the kernels for a CUDA
+    tensor, the plain version for a CPU tensor. X and Y must divide by 4
+    (two pools)."""
+    if bev.shape[1] % 4 or bev.shape[2] % 4:
+        raise ValueError(f"centernet_bf16: map {tuple(bev.shape[1:3])}, "
+                         "needs multiples of 4")
+    if not bev.is_cuda:
+        return centernet_bf16_plain(packed, bev)
+    return run_bf16(packed, bev.contiguous(), _CUDA_BF16)

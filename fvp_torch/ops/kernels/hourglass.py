@@ -51,9 +51,10 @@ def _res(x, r, ops):
     return ops.conv(h, r["c1"], res=skip, relu=True)
 
 
-def run(packed, planes, ops):
-    """P2PNet through `ops` (conv_bf16.PLAIN, the kernels' ops, or a
-    caller's namespace of the same three ops)."""
+def body(packed, planes, ops):
+    """The hourglass body (BasicBlock front, ResBlock, EncoderDecoder) of
+    a packed P2PNet or CenterNet through `ops`: (N, H, W, Cin) -> (N, H, W,
+    32) bf16, rounded where the reference's `_hourglass_body` rounds."""
     x = ops.conv(planes, packed["front"], relu=True)
     x = _res(x, packed["res0"], ops)
     e = packed["enc"]
@@ -65,8 +66,14 @@ def run(packed, planes, ops):
     x = _res(x, e["decoder_res2"], ops)
     x = ops.upconv(x, e["decoder_upsample2"], skip2)
     x = _res(x, e["decoder_res1"], ops)
-    x = ops.upconv(x, e["decoder_upsample1"], skip1)
-    return ops.conv(x, packed["final"], out_dtype=torch.float32)
+    return ops.upconv(x, e["decoder_upsample1"], skip1)
+
+
+def run(packed, planes, ops):
+    """P2PNet through `ops` (conv_bf16.PLAIN, the kernels' ops, or a
+    caller's namespace of the same three ops)."""
+    return ops.conv(body(packed, planes, ops), packed["final"],
+                    out_dtype=torch.float32)
 
 
 def p2pnet_plain(packed: dict, planes: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,13 @@ pooled cells for a group of 4 channels held in registers. The band sums go
 to a scratch tensor and the last block of each n adds them in band order,
 so the mean is taken in a fixed order. `weightnet_plan` picks the band, in
 Python on shapes alone, so that the CPU tests can check it.
+
+`weightnet_pool_bf16` is the bf16 route that `compute_dtype='bfloat16'`
+takes: the TPU kernel's own arithmetic (planes and conv weights rounded
+to bf16, float32 sums, the float32 affine and ReLU rounded to bf16, the
+2x2 max in bf16, the mean in float32), on mma.sync in
+`fvp_weightnet_pool_bf16` (csrc/weightnet.cu), one block per (n, j) map.
+Its `packed` comes from engine/packing.py::pack_weightnet_bf16.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from fvp_torch.ops.kernels import Kernel, check, last_block_counters, ptr
 
 WEIGHTNET_POOL = Kernel("weightnet_pool", "fvp_weightnet_pool")
+WEIGHTNET_POOL_BF16 = Kernel("weightnet_pool_bf16", "fvp_weightnet_pool_bf16")
 
 C = 32                   # WeightNet's conv channels
 GROUP = 4                # channels a thread holds
@@ -156,3 +164,45 @@ def launch(planes: torch.Tensor, packed: dict, out: torch.Tensor,
                    ptr(last_block_counters(planes.device, N)), ptr(out),
                    N, A, B, J, C, plan.rows, plan.bands, plan.joints,
                    plan.reps, plan.plane, plan.smem)
+
+
+# -- the bf16 route ------------------------------------------------------------
+
+def weightnet_pool_bf16_plain(planes: torch.Tensor,
+                              packed: dict) -> torch.Tensor:
+    """(N, A, B, J) -> (N, J, C) as the TPU kernel computes it
+    (fvp_tpu/ops/pallas/weightnet.py::_weightnet_kernel): bf16 planes and
+    taps, float32 sums, relu(scale * h + shift) rounded to bf16, the 2x2
+    max (exact on the rounded values), the mean in float32; any device."""
+    n, a, b, j = planes.shape
+    w, aff = packed["w"], packed["aff"]              # (16, C) bf16, (2, C)
+    C = w.shape[1]
+    x = planes.to(torch.bfloat16).float().permute(0, 3, 1, 2) \
+        .reshape(n * j, 1, a, b)
+    h = F.conv2d(x, w[:9].float().t().reshape(C, 1, 3, 3), padding=1)
+    h = torch.relu(h * aff[0][:, None, None] + aff[1][:, None, None])
+    h = F.max_pool2d(h.to(torch.bfloat16).float(), 2, 2)
+    return h.mean(dim=(2, 3)).reshape(n, j, C)
+
+
+def weightnet_pool_bf16(planes: torch.Tensor, packed: dict) -> torch.Tensor:
+    """The bf16 route of WeightNet's conv front end: (N, A, B, J) float32
+    plane heatmaps -> (N, J, C) float32 pooled features; the kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if not planes.is_cuda:
+        return weightnet_pool_bf16_plain(planes, packed)
+    N, A, B, J = planes.shape
+    w, aff = packed["w"], packed["aff"]
+    C = w.shape[1]
+    if C != 32 or A % 2 or B % 2:
+        raise ValueError(f"weightnet_pool_bf16: takes C == 32 and even "
+                         f"maps, got C={C}, {A}x{B}")
+    check(planes, "planes")
+    check(w, "w", (16, C), dtype=torch.bfloat16, device=planes.device)
+    check(aff, "aff", (2, C), device=planes.device)
+    out = torch.empty((N, J, C), dtype=torch.float32, device=planes.device)
+    if N == 0:
+        return out
+    WEIGHTNET_POOL_BF16(ptr(planes), ptr(w), ptr(aff), ptr(out), N, A, B, J,
+                        C)
+    return out

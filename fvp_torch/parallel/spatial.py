@@ -43,6 +43,7 @@ from torch import nn
 
 from fvp_torch.engine.serve import Engine, backbone_heatmaps, float32_math
 from fvp_torch.geometry.grids import RigConstants
+from fvp_torch.models.blocks import add_bias_bf16
 from fvp_torch.models.cnns import CenterNet
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
 from fvp_torch.ops.kernels.sampler import row_block, whole_sample
@@ -118,6 +119,11 @@ def _halo_conv(mesh: Mesh, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     the neighbours' seam rows (zeros at the outer edge) in place of its
     x padding."""
     h = conv.kernel_size[0] // 2
+    if conv.compute_dtype == torch.bfloat16:
+        # bf16 values move as float32 (exact) and round back
+        x = exchange_rows(mesh, x.float(), h, 0.0, dim=2).to(torch.bfloat16)
+        return add_bias_bf16(conv.product(
+            x, conv.weight.to(torch.bfloat16), (0, h)), conv.bias)
     return F.conv2d(exchange_rows(mesh, x, h, 0.0, dim=2), conv.weight,
                     conv.bias, padding=(0, h))
 

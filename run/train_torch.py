@@ -1,9 +1,11 @@
 #!/usr/bin/env python
 """Train CLI of the PyTorch port: `python run/train_torch.py --cfg
-configs/test/tiny_synthetic.yaml [--epochs N] [--resume] [--device cpu]`.
+configs/test/tiny_synthetic.yaml [--epochs N] [--resume] [--device cpu]
+[--compute-dtype bfloat16]`.
 
 The reference package's run/train.py with the port's trainer
-(fvp_torch/engine/train.py): the config's train and test datasets, the
+(fvp_torch/engine/train.py), at the config's compute dtype or
+--compute-dtype's (float32 or bfloat16): the config's train and test datasets, the
 model initialised from cfg.seed (the reference package's default scheme,
 or the original implementation's with --torch-init / TRAIN.INIT_SCHEME
 reference), a frozen backbone from PRETRAINED_BACKBONE for the image
@@ -12,8 +14,9 @@ the device between prints, evaluation through run_validation every
 --eval-every epochs (the model is packed anew for it, then goes back to
 train mode), and checkpoints in the config's OUTPUT_DIR/<cfg name>/:
 checkpoint.pth (the full train state; --resume continues from it, in the
-middle of an epoch too) and model_best.pth (a state dict that
-run/validate_torch.py --checkpoint reads). It runs on `cuda` unless
+middle of an epoch too, or where there is none from the reference's
+checkpoint.msgpack in the same directory) and model_best.pth (a state
+dict that run/validate_torch.py --checkpoint reads). It runs on `cuda` unless
 --device says otherwise, and raises without a card.
 """
 
@@ -32,9 +35,9 @@ import torch  # noqa: E402
 from fvp_torch.config import load_config  # noqa: E402
 from fvp_torch.data.loader import prefetch, seq_grouped_batches  # noqa: E402
 from fvp_torch.data.registry import build_dataset  # noqa: E402
-from fvp_torch.engine.checkpoint import (load_backbone_state,  # noqa: E402
-                                         load_checkpoint, save_best,
-                                         save_checkpoint)
+from fvp_torch.engine.checkpoint import (  # noqa: E402
+    CHECKPOINT, REFERENCE_CHECKPOINT, load_backbone_state, load_checkpoint,
+    load_reference_checkpoint, save_best, save_checkpoint)
 from fvp_torch.engine.init import flax_init, reference_reinit  # noqa: E402
 from fvp_torch.engine.serve import resolve_device  # noqa: E402
 from fvp_torch.engine.train import LOSS_KEYS, Trainer, step_inputs  # noqa: E402
@@ -77,6 +80,11 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a card) or "
                              "'cpu' for the plain path")
+    parser.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                        default=None,
+                        help="the nets' compute dtype (default: the "
+                             "config's, float32); bfloat16 as the "
+                             "reference's nets built with dtype=bfloat16")
     args = parser.parse_args(argv)
     if args.checkpoint_every < 1:
         parser.error("--checkpoint-every must be >= 1")
@@ -84,6 +92,8 @@ def main(argv=None) -> int:
         parser.error("--eval-every must be >= 1")
 
     cfg = load_config(args.cfg)
+    if args.compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=args.compute_dtype)
     if args.epochs is not None:
         cfg = cfg.replace(end_epoch=args.epochs)
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -119,6 +129,12 @@ def main(argv=None) -> int:
     start_epoch, best, start_step = cfg.begin_epoch, -np.inf, 0
     if args.resume:
         restored = load_checkpoint(out_dir, trainer)
+        if restored:
+            logger.info(f"resume: {os.path.join(out_dir, CHECKPOINT)}")
+        elif os.path.exists(os.path.join(out_dir, REFERENCE_CHECKPOINT)):
+            path = os.path.join(out_dir, REFERENCE_CHECKPOINT)
+            restored = load_reference_checkpoint(path, trainer)
+            logger.info(f"resume: {path} (the reference's train state)")
         if restored:
             start_epoch, best, start_step = restored
             logger.info(f"resumed from epoch {start_epoch}"

@@ -8,13 +8,17 @@ Predictor(device='cpu') on heatmaps, on images and with `fuse_p2p`
 against FasterVoxelPose(compute_dtype='bfloat16').apply(train=False).
 
 Both sides compute in bf16 operands with float32 sums, but round at other
-points: the port's convs add their bias before the one rounding to bf16
-(flax rounds the conv, then the bias add), its bottleneck stage rounds
-where the TPU stage kernel does, and its CenterNet and WeightNet pool
-stay float32 where the reference's compute in bf16. So each tolerance is
-bf16's: 2e-2 of the scale on heatmaps and net outputs (as
-tests/test_hourglass.py holds the Pallas kernels against the float32 flax
-modules), and a stated mm tolerance, measured, on the fused poses."""
+points: the port's serving convs add their bias before the one rounding
+to bf16 (flax rounds the conv, then the bias add), its bottleneck stage
+rounds where the TPU stage kernel does, and its CenterNet and WeightNet
+pool take their bf16 routes, which round where the TPU kernels do (the
+reference's flax modules on the 'exact' backend round otherwise). So
+each tolerance is bf16's: 2e-2 of the scale on heatmaps and net outputs
+(as tests/test_hourglass.py holds the Pallas kernels against the float32
+flax modules), and a stated mm tolerance, measured, on the fused poses.
+The people are held one by one, paired by voxel pick
+(tests/test_torch_pairing.py): two whose BEV scores lie within bf16's
+reach of each other may come out of the top-K in either order."""
 
 import dataclasses
 
@@ -38,6 +42,7 @@ from fvp_tpu.models.resnet import PoseResNet as FlaxPoseResNet
 from fvp_tpu.models.resnet import convert_torch_state
 from fvp_tpu.ops.pallas.stem import s2d_host
 from tests.helpers import random_rig
+from tests.test_torch_pairing import check_paired
 from tests.test_torch_nets import perturbed_variables, port_model, small_cfg
 
 BF16 = dict(compute_dtype="bfloat16")
@@ -151,21 +156,18 @@ def test_pose_resnet50_bf16_matches_flax(resnet50, monkeypatch):
         assert k.launches == 0, k.name
 
 
-def _check_predictor(out, ref, det, min_score, what):
+def _check_predictor(out, ref, det, rc, min_score, what):
     conf = det["proposals"][..., 4].numpy().ravel()
     assert np.min(np.abs(conf - min_score)) > GATE_MARGIN, (what, conf)
     assert int(np.sum(np.asarray(ref["mask"]))) >= 2, what
-    np.testing.assert_array_equal(out["mask"].numpy(),
-                                  np.asarray(ref["mask"]))
-    got_p, ref_p = out["proposals"].numpy(), np.asarray(ref["proposals"])
-    # the same voxel picks (their mm centers within a float32 rounding)
-    # and matches; confidences and boxes in bf16
-    np.testing.assert_allclose(got_p[..., :3], ref_p[..., :3], rtol=1e-6)
-    np.testing.assert_array_equal(got_p[..., 3], ref_p[..., 3])
-    assert _rel_err(got_p[..., 4:], ref_p[..., 4:]) < RTOL, what
-    np.testing.assert_allclose(out["fused_poses"].numpy(),
-                               np.asarray(ref["fused_poses"]),
-                               rtol=0, atol=POSE_ATOL_MM)
+    # person by person: each reference proposal against the port's at the
+    # same voxel pick (mm centres within a float32 rounding), the same
+    # voxels on both sides, two slots in the other order only where the
+    # reference's BEV scores lie within RTOL of the map's scale (a top-K
+    # near-tie that neither side's bf16 arithmetic orders reliably); then
+    # per pair the mask, the match index, the confidences and boxes in
+    # bf16 and the fused poses
+    check_paired(out, ref, rc.voxel_to_mm.numpy(), POSE_ATOL_MM, RTOL)
     for k in all_kernels().values():
         assert k.launches == 0, k.name
 
@@ -201,10 +203,11 @@ def test_predictor_bf16_on_heatmaps_matches_reference(variables, fuse):
     out = pred(hm)
     with torch.inference_mode():
         det = pred.model.detect(torch.from_numpy(hm), pred.rc, pred.packed)
-    # the nets' raw maps: CenterNet float32 here, bf16 there
+    # the nets' raw maps: CenterNet's bf16 route here, the reference's
+    # bf16 module or kernel there
     assert _rel_err(det["hm2d"].numpy(), ref["hm2d"]) < RTOL
     assert _rel_err(det["hm1d"].numpy(), ref["hm1d"]) < RTOL
-    _check_predictor(out, ref, det, cfg.min_score,
+    _check_predictor(out, ref, det, pred.rc, cfg.min_score,
                      "fuse_p2p" if fuse else "heatmaps")
 
 
@@ -233,4 +236,4 @@ def test_predictor_bf16_on_images_matches_reference(variables, resnet50):
     out = pred(images)
     with torch.inference_mode():
         det = pred.model.detect(got_hm, pred.rc, pred.packed)
-    _check_predictor(out, ref, det, cfg.min_score, "images")
+    _check_predictor(out, ref, det, pred.rc, cfg.min_score, "images")

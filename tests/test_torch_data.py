@@ -8,11 +8,11 @@ records, rigs, samples and `evaluate` results on the on-disk trees that
 the reference package's fixture tests write. `collate`, `build_samples`,
 `batch_iterator` and `eval_batches`: the same batches, padding included.
 
-The port renders host heatmaps with the numpy renderer; the reference
-package prefers its native C++ renderer where one is built (the same maps
-within 1e-5, augmentation from another RNG stream), so these tests switch
-that off on the reference side and compare with its numpy path, bit for
-bit.
+Both packages render host heatmaps with their native C++ renderer where
+it is on (the same maps as the numpy renderer within 1e-5, augmentation
+from another RNG stream); these tests switch it off on both sides and
+compare the numpy paths, bit for bit (tests/test_torch_native.py holds
+the native paths against each other).
 """
 
 import dataclasses
@@ -23,6 +23,7 @@ import pytest
 
 import fvp_torch.config as tcfg
 import fvp_torch.data.loader as tloader
+import fvp_torch.data.native as tnative
 import fvp_torch.data.registry as treg
 import fvp_torch.engine.validate as tval
 import fvp_tpu.data.loader as jloader
@@ -36,8 +37,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(autouse=True)
 def numpy_renderer(monkeypatch):
-    """The reference package's host renderer on its numpy path."""
+    """Both packages' host renderers on their numpy paths."""
     monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    monkeypatch.setattr(tnative, "ENABLED", False)
 
 
 def port_cfg(cfg: FVPConfig) -> tcfg.FVPConfig:

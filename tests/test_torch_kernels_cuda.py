@@ -355,6 +355,50 @@ def test_weightnet_pool_kernel(dev, shape, rows):
     assert torch.equal(call(), got)
 
 
+@pytest.mark.parametrize("shape", [(1, 80, 80, 15), (8, 80, 80, 15),
+                                   (1, 40, 24, 17), (2, 16, 16, 15)])
+def test_centernet_bf16_route(dev, shape):
+    """CenterNet's bf16 route (24 convs and 2 pools on the bf16 conv
+    kernels) at B = 1 and the eval batch's 8 maps, a 10 x 6 deepest level
+    and a small map: bf16 flips carry on through the net as in P2PNet, so
+    the maps are held at 1e-2 of their scale."""
+    J = shape[-1]
+    packed = pack_model(_model(J, dev), "bfloat16")["center_net_bf16"]
+    bev = torch.rand(shape, device=dev)
+    before = kcn.bf16_launches()
+    got = kcn.centernet_bf16(packed, bev)
+    assert kcn.bf16_launches() == before + 26
+    ref = kcn.centernet_bf16_plain(packed, bev)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert torch.isfinite(g).all()
+        scale = float(r.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-2 * scale)
+
+
+@pytest.mark.parametrize("shape", [(6, 16, 16, 15), (30, 64, 64, 15),
+                                   (240, 64, 64, 15), (2, 40, 22, 17),
+                                   (3, 10, 6, 2)])
+def test_weightnet_pool_bf16_route(dev, shape):
+    """WeightNet's bf16 pool on mma.sync against its plain version: the 9
+    products are exact in float32, their sum's order differs, so a pooled
+    value may round to the neighbouring bf16 value: one bf16 ulp of the
+    scale at most in the mean. (2, 40, 22, 17): a ragged last patch of
+    columns; two calls give the same bits."""
+    packed = pack_model(_model(shape[-1], dev), "bfloat16")["weight_net_bf16"]
+    planes = torch.as_tensor(np.random.RandomState(0).randn(*shape)
+                             .astype(np.float32), device=dev)
+    before = kwn.WEIGHTNET_POOL_BF16.launches
+    got = kwn.weightnet_pool_bf16(planes, packed)
+    assert kwn.WEIGHTNET_POOL_BF16.launches == before + 1
+    ref = kwn.weightnet_pool_bf16_plain(planes, packed)
+    scale = float(ref.abs().max())
+    assert scale > 0 and got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=0, atol=2.0 ** -8 * scale)
+    assert torch.equal(kwn.weightnet_pool_bf16(planes, packed), got)
+
+
 def _assert_within_one_bf16_ulp(got, ref):
     """bf16 kernel vs its plain version: the same float32 sums in another
     order, rounded to bf16, so one bf16 ulp (2**-7 of the value) plus the
@@ -449,14 +493,17 @@ def test_wrappers_reject_bad_cuda_input(dev):
 
 
 # kernels the default heatmap path does not launch: the backbone's, the
-# fuse_p2p path's, the bottleneck stage (the bf16 image path's layer1) and
-# K1 in sum mode (the view-sharded step's)
+# fuse_p2p path's, the bottleneck stage (the bf16 image path's layer1), K1
+# in sum mode (the view-sharded step's) and the bf16 routes of CenterNet
+# and WeightNet's pool (compute_dtype='bfloat16')
 _FUSE_ONLY = ("p2pnet.conv.wgmma", "p2pnet.conv.wmma", "p2pnet.pool",
               "c2cnet")
 _STAGE = ("bottleneck_stage.wgmma", "bottleneck_stage.wmma")
 _SHARDED = ("whole_sample.sum",)
+_BF16_ROUTES = ("centernet_bf16.conv.wgmma", "centernet_bf16.conv.wmma",
+                "centernet_bf16.pool", "weightnet_pool_bf16")
 _OFF_HEATMAP_PATH = ("stem", "deconv_stage") + _STAGE + _FUSE_ONLY \
-    + _SHARDED
+    + _SHARDED + _BF16_ROUTES
 
 
 def test_predictor_cuda_matches_cpu(dev):
@@ -512,7 +559,8 @@ def test_image_predictor_cuda_matches_cpu(dev):
     reset_launches()
     got = pred(images)
     counts = {n: k.launches for n, k in all_kernels().items()}
-    off = {n: counts.pop(n) for n in _FUSE_ONLY + _STAGE + _SHARDED}
+    off = {n: counts.pop(n) for n in _FUSE_ONLY + _STAGE + _SHARDED
+           + _BF16_ROUTES}
     assert all(c > 0 for c in counts.values()), counts
     assert all(c == 0 for c in off.values()), off
     cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu",

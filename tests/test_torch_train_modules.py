@@ -260,7 +260,9 @@ def test_lr_boundaries_match_reference():
 
 
 def test_trainer_refuses_other_dtypes():
-    cfg = port_cfg(train_cfg()).replace(compute_dtype="bfloat16")
+    """float32 and bfloat16 train (tests/test_torch_train_bf16.py); any
+    other compute_dtype raises."""
+    cfg = port_cfg(train_cfg()).replace(compute_dtype="float16")
     with pytest.raises(ValueError, match="float32"):
         Trainer(cfg, TModel(cfg), "cpu")
 
