@@ -31,11 +31,14 @@ non-zero:
    launch per call; weightnet_pool's plan, its GB/s of input and two calls
    bitwise equal; soft_argmax's plan (blocks a map, threads, rows), one
    launch per call, its GB/s and two calls bitwise equal; and the bf16
-   routes that compute_dtype='bfloat16' takes for CenterNet (24 bf16 conv
-   launches and 2 pools a call) and WeightNet's pool (mma.sync, one launch)
-   at B = 1 (frame 0's BEV map, P2PNet's features of K2's planes) and at
-   the eval batch (B = 8, P = 80), each against its plain version, with
-   its bound at bf16's rate and, as its library call, the cuDNN CenterNet
+   routes that compute_dtype='bfloat16' takes for CenterNet (one launch of
+   the persistent bf16 kernel a call, its 16 stages each launched alone,
+   beside the earlier route of 24 bf16 conv launches and 2 pools timed in
+   the same run as a yardstick) and WeightNet's pool (the banded mma.sync
+   kernel, one launch, its plan and GB/s) at B = 1 (frame 0's BEV map,
+   P2PNet's features of K2's planes) and at the eval batch (B = 8, P =
+   80), each against its plain version, two calls bitwise equal, with its
+   bound at bf16's rate and, as its library call, the cuDNN CenterNet
    module in bf16 and a bf16 conv2d;
 4. drives the heatmap serving path, `Predictor` at full width with seeded
    random weights, on the card for 12 frames of Gaussian-blob heatmaps with
@@ -60,10 +63,11 @@ non-zero:
    image Predictor in bf16 for 12 frames with every launch count set to 0
    just before, checks that the stem (1 a frame), the bottleneck stage on
    layer1 (10 conv_wgmma launches a frame), the deconv head (3 a frame),
-   K1, K2, K4 and the bf16 routes of CenterNet (26 a frame) and
-   WeightNet's pool (1 a frame) ran and nothing else did, prints its
-   latency beside the same predictor's on the float32 CenterNet and pool
-   kernels (in this run), its profile and
+   K1, K2, K4 and the bf16 routes of CenterNet (1 a frame) and
+   WeightNet's pool (1 a frame) ran and nothing else did (the earlier
+   layer-by-layer CenterNet route not at all), prints its latency and
+   profile beside the same predictor's on the float32 CenterNet and pool
+   kernels (in this run), its
    parts (stem, layer1, layers 2-4, head, final_layer, HDN+JLN) beside the
    float32 frame's parts of phase 5, holds view 0's heatmaps against the
    CPU's bf16 backbone and frame 0's poses against the CPU's bf16 HDN+JLN
@@ -238,6 +242,19 @@ FUSE_POSE_TOL_MM = 1.0
 # 1.2e-2 of their scale apart).
 BF16_POSE_TOL_MM = 3.0
 BF16_TIE_RTOL = 2e-2
+# The bf16 CenterNet on the card and on the CPU sum in other orders, so a
+# bf16 rounding of an activation may land on the other side of a boundary
+# and carry on through the net (CENTERNET_BF16_RTOL of its maps' scale
+# against the plain version). Two BEV cells whose scores lie within one
+# bf16 ulp of the map's scale (2**-8) of each other on the CPU, on the
+# card and on the two other routes read on the card's BEV (the plain
+# version and the earlier 26-launch route) are a near-tie at the top-K
+# boundary: the card may keep the one and the CPU the other, at most
+# BF16_MAX_TRADED cells. Frame 0 of the seeded nets trades one: the
+# card's (76, 20) for the CPU's (76, 38), 6.5e-4 and 1.4e-3 of the scale
+# apart on the CPU and the card.
+BF16_HM_TIE_RTOL = 2.0 ** -8
+BF16_MAX_TRADED = 1
 # phase 11 (b): the 5-rank bf16 frame against the unsharded HDN+JLN on the
 # same per-view heatmaps, a person with the same voxel pick. Only the view
 # sum's order and P2PNet's batch (6 planes a rank against 30) differ, so
@@ -792,7 +809,7 @@ def main() -> int:
     expect_per_frame(bf16_launches, {"stem": 1, "deconv_stage": 3},
                      "bf16 image path")
     expect_conv_routes(K, "bottleneck_stage", FRAMES, STAGE_ROUTES)
-    expect_per_frame(bf16_launches, {"centernet_bf16": 26,
+    expect_per_frame(bf16_launches, {"centernet_bf16": 1,
                                      "weightnet_pool_bf16": 1},
                      "bf16 image path")
     bf16_steady = lat[WARMUP_FRAMES:]
@@ -812,6 +829,9 @@ def main() -> int:
         f"on the bf16 routes against "
         f"{statistics.median(lat32[WARMUP_FRAMES:]):.3f} ms on the float32 "
         f"routes ({smi})")
+    log("bf16 image frame on the float32 CenterNet and pool kernels:")
+    profile_frames(pred_f32r, img_frames)
+    log("bf16 image frame on the bf16 routes:")
     profile_frames(pred_bf16, img_frames)
     bf16_parts = image_breakdown(pred_bf16, img_frames[0])
     log("image frame by part, bfloat16 beside float32 (this run):")
@@ -1044,11 +1064,14 @@ def bf16_route_kernels(pred16, pred, frames, feats, rows) -> None:
     on frame 0's BEV map and WeightNet's pool on P2PNet's features of K2's
     planes (B = 1), then on 8 frames' BEV maps and 80 people's features
     (the eval batch), each against its plain version on the same inputs,
-    timed beside the plain version and one library call (the cuDNN
-    CenterNet module in bf16 on the bf16 map, a bf16 conv2d of the pool's
-    planes), with its bound at bf16's rate; CenterNet's launches per call
-    and conv routes. The rows carry B = 1's numbers and the eval batch's
-    as `eval_batch_*`."""
+    two calls bitwise equal, timed beside the plain version and one
+    library call (the cuDNN CenterNet module in bf16 on the bf16 map, a
+    bf16 conv2d of the pool's planes), with its bound at bf16's rate;
+    CenterNet's launches per call, its plan, each of its stages launched
+    alone, and the earlier route of 24 conv and 2 pool launches
+    (`run_bf16` on the conv_bf16.cu kernels) timed in the same run as a
+    yardstick; the pool's plan and GB/s. The rows carry B = 1's numbers
+    and the eval batch's as `eval_batch_*`."""
     import torch
     import torch.nn.functional as F
     from fvp_torch.engine.packing import bf16_copy
@@ -1071,45 +1094,81 @@ def bf16_route_kernels(pred16, pred, frames, feats, rows) -> None:
     for tag, bev, f in (("", bev8[:1].contiguous(), feats),
                         ("eval_batch_", bev8, feats8)):
         B, H, W, J = bev.shape
-        # CenterNet's bf16 route
-        kcn.CONV_BF16.wgmma.launches = kcn.CONV_BF16.wmma.launches = 0
-        before = kcn.bf16_launches()
+        # CenterNet's bf16 route: one launch of the persistent kernel
+        before, layered = kcn.bf16_launches(), kcn.layered_bf16_launches()
         hm_k, size_k = kcn.centernet_bf16(pc, bev)
         per_call = kcn.bf16_launches() - before
-        routes = {"wgmma": kcn.CONV_BF16.wgmma.launches,
-                  "wmma": kcn.CONV_BF16.wmma.launches}
+        if per_call != 1 or kcn.layered_bf16_launches() != layered:
+            raise AssertionError(f"centernet_bf16: {per_call} launches a "
+                                 "call, expected 1 (and none of the "
+                                 "layer-by-layer route)")
         hm_p, size_p = kcn.centernet_bf16_plain(pc, bev)
         torch.cuda.synchronize()
         scale = float(max(hm_p.abs().max(), size_p.abs().max()))
         err = float(max((hm_k - hm_p).abs().max(),
                         (size_k - size_p).abs().max()))
+        again = kcn.centernet_bf16(pc, bev)
+        same = bool(torch.equal(again[0], hm_k)
+                    and torch.equal(again[1], size_k))
+        hm_l, size_l = kcn.run_bf16(pc, bev, kcn._CUDA_BF16)
+        torch.cuda.synchronize()
+        layered_err = float(max((hm_l - hm_p).abs().max(),
+                                (size_l - size_p).abs().max()))
         bev16 = bev.to(torch.bfloat16)
         cn = {"max_abs_err": err, "tol": CENTERNET_BF16_RTOL * scale,
               "ms": time_ms(lambda: kcn.centernet_bf16(pc, bev)),
               "plain_ms": time_ms(lambda: kcn.centernet_bf16_plain(pc, bev)),
-              "library_ms": time_ms(lambda: net16.bev_forward(bev16))}
+              "library_ms": time_ms(lambda: net16.bev_forward(bev16)),
+              "layered_ms": time_ms(lambda: kcn.run_bf16(pc, bev,
+                                                         kcn._CUDA_BF16)),
+              "layered_max_abs_err": layered_err,
+              "launches_per_call": per_call}
         cn["bound_ms"], cn["bound_by"] = bound(
-            nbytes(bev, hm_k, size_k, *_leaves(pc)),
+            nbytes(bev, hm_k, size_k, pc["wflat"], pc["affflat"]),
             B * conv_flops(pred.packed["center_net"], H, W), PEAK_BF16)
+        plan = kcn.centernet_bf16_plan(B, H, W, J)
+        arena = torch.empty(plan.arena_elems, dtype=torch.bfloat16,
+                            device=dev)
+        out = torch.empty(3 * B * H * W, device=dev)
+        kcn.launch_bf16(pc, bev, arena, out)
+        cn["stage_ms"] = [
+            time_ms(lambda s=s: kcn.launch_bf16(pc, bev, arena, out, s,
+                                                s + 1))
+            for s in range(len(plan.stages))]
+        cn["host_enqueue_ms"] = host_ms(lambda: kcn.centernet_bf16(pc, bev))
         log(f"centernet_bf16 {tuple(bev.shape)}: max_abs_err={err:.3e} "
             f"tol={cn['tol']:.3e} ({CENTERNET_BF16_RTOL:.0e} x scale "
             f"{scale:.3e}) kernel_ms={cn['ms']:.4f} plain_ms="
             f"{cn['plain_ms']:.4f} library_ms={cn['library_ms']:.4f} (cuDNN "
             f"CenterNet module in bf16) bound_ms={cn['bound_ms']:.4f} "
             f"({cn['bound_by']}, bf16 at {PEAK_BF16 / 1e12:.0f} TFLOP/s); "
-            f"{per_call} launches a call, conv routes {routes}")
+            f"{per_call} launch a call; two calls bitwise equal {same}; the "
+            f"earlier 26-launch route {cn['layered_ms']:.4f} ms in this run "
+            f"(a yardstick; max_abs_err {layered_err:.3e} from the plain "
+            f"version); host_enqueue_ms {cn['host_enqueue_ms']:.4f}")
+        log(f"centernet_bf16 plan {tuple(bev.shape)}: {len(plan.stages)} "
+            f"stages, {plan.smem_bytes} B of shared memory a block, "
+            f"{plan.max_tiles} tiles in the largest stage; each stage "
+            "launched alone (device time):")
+        for s, (a, b) in enumerate(plan.stages):
+            log(f"  stage {s:2d} {cn['stage_ms'][s]:.4f} ms  " + "; ".join(
+                f"{op['name']} {op['h']}x{op['w']} {op['cin']}->"
+                f"{op['cout']} tile {op['th']}x{op['tw']}x{op['tn']}, "
+                f"{op['tiles']} tiles" for op in plan.ops[a:b]))
         held("centernet_bf16", err, cn["tol"], f" at B = {B}")
-        if per_call != 26:
-            raise AssertionError(f"centernet_bf16: {per_call} launches a "
-                                 "call, expected 24 convs and 2 pools")
+        if not same:
+            raise AssertionError("centernet_bf16: two calls differ")
         # WeightNet's pool, bf16 route
         before = kwn.WEIGHTNET_POOL_BF16.launches
         w_k = kwn.weightnet_pool_bf16(f, pw)
-        if kwn.WEIGHTNET_POOL_BF16.launches != before + 1:
-            raise AssertionError("weightnet_pool_bf16: not one launch a call")
+        w_per_call = kwn.WEIGHTNET_POOL_BF16.launches - before
+        if w_per_call != 1:
+            raise AssertionError(f"weightnet_pool_bf16: {w_per_call} "
+                                 "launches a call, expected 1")
         w_p = kwn.weightnet_pool_bf16_plain(f, pw)
         torch.cuda.synchronize()
         err = float((w_k - w_p).abs().max())
+        same = bool(torch.equal(kwn.weightnet_pool_bf16(f, pw), w_k))
         Nn, A, Bb, _ = f.shape
         x1 = f.permute(0, 3, 1, 2).reshape(Nn * J, 1, A, Bb) \
             .to(torch.bfloat16).contiguous()
@@ -1119,21 +1178,28 @@ def bf16_route_kernels(pred16, pred, frames, feats, rows) -> None:
               "ms": time_ms(lambda: kwn.weightnet_pool_bf16(f, pw)),
               "plain_ms": time_ms(lambda: kwn.weightnet_pool_bf16_plain(f,
                                                                        pw)),
-              "library_ms": time_ms(lambda: F.conv2d(x1, w16, padding=1))}
+              "library_ms": time_ms(lambda: F.conv2d(x1, w16, padding=1)),
+              "launches_per_call": w_per_call}
         wn["bound_ms"], wn["bound_by"] = bound(
             nbytes(f, w_k, *_leaves(pw)), Nn * J * A * Bb * C * 9 * 2.0,
             PEAK_BF16)
+        wn["gb_per_s"] = nbytes(f) / wn["ms"] / 1e6
+        wplan = kwn.weightnet_bf16_plan(Nn, A, Bb, J)
         log(f"weightnet_pool_bf16 {tuple(f.shape)}: max_abs_err={err:.3e} "
             f"tol={wn['tol']:.3e} (one bf16 ulp of the scale) kernel_ms="
             f"{wn['ms']:.4f} plain_ms={wn['plain_ms']:.4f} library_ms="
             f"{wn['library_ms']:.4f} (bf16 conv2d alone) bound_ms="
             f"{wn['bound_ms']:.4f} ({wn['bound_by']}); "
-            f"{nbytes(f) / wn['ms'] / 1e6:.1f} GB/s of its input; two calls "
-            f"bitwise equal "
-            f"{bool(torch.equal(kwn.weightnet_pool_bf16(f, pw), w_k))}")
+            f"{wn['gb_per_s']:.1f} GB/s of its {nbytes(f) / 1e6:.1f} MB "
+            f"input; two calls bitwise equal {same}; plan: bands of "
+            f"{wplan.rows} rows ({wplan.bands} a map), {wplan.joints} joints "
+            f"a block, {wplan.blocks} blocks of {wplan.warps} warps, "
+            f"{wplan.smem} B shared")
         held("weightnet_pool_bf16", err, wn["tol"], f" at N = {Nn}")
+        if not same:
+            raise AssertionError("weightnet_pool_bf16: two calls differ")
         for name, src, tpu, m in (
-                ("centernet_bf16", "fvp_torch/csrc/conv_bf16.cu",
+                ("centernet_bf16", "fvp_torch/csrc/centernet_bf16.cu",
                  "fvp_tpu/ops/pallas/hourglass.py:386", cn),
                 ("weightnet_pool_bf16", "fvp_torch/csrc/weightnet.cu",
                  "fvp_tpu/ops/pallas/weightnet.py:84", wn)):
@@ -1700,9 +1766,12 @@ def launch_counts(K) -> dict:
             "c2cnet": c["c2cnet"],
             "bottleneck_stage": c["bottleneck_stage.wgmma"]
             + c["bottleneck_stage.wmma"],
-            "centernet_bf16": c["centernet_bf16.conv.wgmma"]
-            + c["centernet_bf16.conv.wmma"] + c["centernet_bf16.pool"],
-            "weightnet_pool_bf16": c["weightnet_pool_bf16"]}
+            "centernet_bf16": c["centernet_bf16"],
+            "weightnet_pool_bf16": c["weightnet_pool_bf16"],
+            # the earlier layer-by-layer bf16 CenterNet (a yardstick of
+            # phase 3): on no path
+            "centernet_bf16_layers": c["centernet_bf16.conv.wgmma"]
+            + c["centernet_bf16.conv.wmma"] + c["centernet_bf16.pool"]}
 
 
 # launches per call of each conv route (ops/kernels/conv_bf16.py::
@@ -1749,13 +1818,21 @@ def drive(pred, frames, K):
 
 def check_poses_bf16(out, pred, cpu, hm) -> None:
     """The bf16 path's frame against the CPU's bf16 HDN+JLN on the same
-    heatmaps. cuDNN's bf16 convs and the CPU's round at other points (the
-    C2CNet scores' difference is printed): masks must be identical (the
-    gate clear of both sides' confidences), each person whose voxel pick
-    agrees within BF16_POSE_TOL_MM, and a person whose z pick differs only
-    where C2CNet's scores at the two picks are a near-tie on the CPU
-    (within BF16_TIE_RTOL of the person's score scale)."""
+    heatmaps. The card's kernels and the CPU round at other points (the
+    BEV maps' and C2CNet scores' differences are printed). Of each side's
+    top-K BEV cells, at most BF16_MAX_TRADED that only one side keeps,
+    each such pair of cells a near-tie (within BF16_HM_TIE_RTOL of the
+    map's scale) on the CPU, on the card and on both witnesses; every cell
+    that both keep paired by cell, with identical masks (the gate clear of
+    both sides' confidences), each person whose voxel pick agrees within
+    BF16_POSE_TOL_MM, and a person whose z pick differs only where
+    C2CNet's scores at the two picks are a near-tie on the CPU (within
+    BF16_TIE_RTOL of the person's score scale)."""
     import torch
+    from fvp_torch.engine.serve import float32_math
+    from fvp_torch.ops.kernels import centernet as kcn
+    from fvp_torch.ops.kernels import sampler as ksamp
+    from fvp_torch.ops.nms import nms_topk_2d
 
     ref = cpu(hm.cpu())
     got = {k: v.cpu() for k, v in out.items()}
@@ -1774,36 +1851,82 @@ def check_poses_bf16(out, pred, cpu, hm) -> None:
     if passed < 2 or gap <= 1e-4:
         raise AssertionError(f"vacuous or fragile gate: {passed} pass, "
                              f"closest confidence {gap} from min_score")
-    if not torch.equal(got["mask"], ref["mask"]):
+    # each side's top-K BEV cells, paired by cell
+    hm_cpu, hm_card = d_cpu["hm2d"][0], d_card["hm2d"][0].cpu()
+    hm_scale = float(hm_cpu.abs().max())
+    K = c_cpu.numel()
+    cells_cpu = [tuple(c) for c in
+                 nms_topk_2d(hm_cpu[None], K)[1][0].long().tolist()]
+    cells_card = [tuple(c) for c in
+                  nms_topk_2d(hm_card[None], K)[1][0].long().tolist()]
+    log(f"bf16 image path BEV maps, card vs CPU: max_abs_err "
+        f"{float((hm_card - hm_cpu).abs().max()):.3e}, scale {hm_scale:.3e}")
+    pairs = [(k, cells_cpu.index(c)) for k, c in enumerate(cells_card)
+             if c in cells_cpu]
+    only_card = [c for c in cells_card if c not in cells_cpu]
+    only_cpu = [c for c in cells_cpu if c not in cells_card]
+    if len(only_card) > BF16_MAX_TRADED:
+        raise AssertionError(f"top-K cells only the card keeps {only_card}, "
+                             f"only the CPU {only_cpu}: more than "
+                             f"{BF16_MAX_TRADED}")
+    if only_card:
+        # the witnesses: the route's plain version and its earlier
+        # 26-launch lowering on the card's BEV of the same frame (after the
+        # path's launches were read)
+        pc = pred.packed["center_net_bf16"]
+        with torch.inference_mode(), float32_math():
+            bev = ksamp.whole_sample(hm, pred.rc, pred.cfg).amax(dim=3)
+            bev = bev.contiguous()
+            maps = {"CPU": hm_cpu, "card": hm_card,
+                    "plain on the card":
+                        kcn.centernet_bf16_plain(pc, bev)[0][0, ..., 0].cpu(),
+                    "26-launch route on the card":
+                        kcn.run_bf16(pc, bev, kcn._CUDA_BF16)[0][0, ..., 0]
+                        .cpu()}
+        for a, b in zip(only_card, only_cpu):
+            gaps = {name: float(m[a] - m[b]) / hm_scale
+                    for name, m in maps.items()}
+            log(f"bf16 image path top-K cell traded: the card keeps {a}, "
+                f"the CPU {b}; score at {a} less score at {b}, over the "
+                f"map's scale: {gaps} (tol {BF16_HM_TIE_RTOL:.3e})")
+            if max(abs(g) for g in gaps.values()) > BF16_HM_TIE_RTOL:
+                raise AssertionError(f"cells {a} and {b} are no BEV "
+                                     f"near-tie: {gaps}")
+    kc = torch.tensor([k for k, _ in pairs])
+    kp = torch.tensor([k for _, k in pairs])
+    if len(pairs) < 2 or not torch.equal(got["mask"][0][kc],
+                                         ref["mask"][0][kp]):
         raise AssertionError("masks differ between the card and the CPU")
     for k in ("fused_poses", "proposals"):
         if not torch.isfinite(got[k]).all():
             raise AssertionError(f"{k}: non-finite")
-    same = (got["proposals"][0, :, :3] == ref["proposals"][0, :, :3]) \
-        .all(dim=-1)
-    hm1d = d_cpu["hm1d"][0]                                  # (K, Z)
-    z_card = d_card["hm1d"][0].argmax(dim=-1).cpu()
+    p_card, p_cpu = got["proposals"][0][kc], ref["proposals"][0][kp]
+    same = (p_card[:, :3] == p_cpu[:, :3]).all(dim=-1)
+    hm1d = d_cpu["hm1d"][0][kp]                              # (pairs, Z)
+    hm1d_card = d_card["hm1d"][0].cpu()[kc]
+    z_card = hm1d_card.argmax(dim=-1)
     log(f"bf16 image path C2CNet scores, card vs CPU: max_abs_err "
-        f"{float((d_card['hm1d'][0].cpu() - hm1d).abs().max()):.3e}, scale "
+        f"{float((hm1d_card - hm1d).abs().max()):.3e}, scale "
         f"{float(hm1d.abs().max()):.3e}")
     flips = []
-    for k in torch.nonzero(~same).flatten().tolist():
-        xy_same = bool((got["proposals"][0, k, :2]
-                        == ref["proposals"][0, k, :2]).all())
-        tie = float(hm1d[k].max() - hm1d[k, z_card[k]])
-        scale = float(hm1d[k].abs().max())
-        flips.append((k, int(hm1d[k].argmax()), int(z_card[k]), tie / scale))
+    for i in torch.nonzero(~same).flatten().tolist():
+        xy_same = bool((p_card[i, :2] == p_cpu[i, :2]).all())
+        tie = float(hm1d[i].max() - hm1d[i, z_card[i]])
+        scale = float(hm1d[i].abs().max())
+        flips.append((int(kp[i]), int(hm1d[i].argmax()), int(z_card[i]),
+                      tie / scale))
         if not (xy_same and tie <= BF16_TIE_RTOL * scale):
-            raise AssertionError(f"person {k}: voxel picks differ beyond a "
-                                 f"z near-tie ({tie / scale:.3e} of scale)")
-    err = (got["fused_poses"][0, :, :, :3] - ref["fused_poses"][0, :, :, :3]
-           ).norm(dim=-1).amax(dim=-1)                       # (K,)
+            raise AssertionError(f"person {int(kp[i])}: voxel picks differ "
+                                 f"beyond a z near-tie ({tie / scale:.3e} "
+                                 "of scale)")
+    err = (got["fused_poses"][0][kc, :, :3]
+           - ref["fused_poses"][0][kp, :, :3]).norm(dim=-1).amax(dim=-1)
     kept = err[same]
-    log(f"bf16 image path fused_poses: {int(same.sum())} of {same.numel()} "
-        f"people with the same voxel pick on card and CPU, joint distance "
-        f"max {float(kept.max()):.3e} mm (tol {BF16_POSE_TOL_MM} mm), per "
+    log(f"bf16 image path fused_poses: {int(same.sum())} of {K} people "
+        f"with the same voxel pick on card and CPU, joint distance max "
+        f"{float(kept.max()):.3e} mm (tol {BF16_POSE_TOL_MM} mm), per "
         f"person {[round(float(e), 3) for e in kept]}; z picks that differ "
-        f"on a near-tie (person, CPU z, card z, gap / scale): {flips}")
+        f"on a near-tie (CPU person, CPU z, card z, gap / scale): {flips}")
     if not float(kept.max()) <= BF16_POSE_TOL_MM:
         raise AssertionError("bf16 fused_poses differ between card and CPU")
 
@@ -2685,8 +2808,8 @@ def service_phase(K, state, bb_state, rig, smi):
     results = [result_q.get(timeout=10.0) for _ in range(FRAMES)]
     log(f"service inference process: {FRAMES} frames, launches {launches}")
     expect_launches(launches, BF16_IMAGE_PATH, "service path")
-    expect_per_frame(launches, {"stem": 1, "deconv_stage": 3},
-                     "service path")
+    expect_per_frame(launches, {"stem": 1, "deconv_stage": 3,
+                                "centernet_bf16": 1}, "service path")
     expect_conv_routes(K, "bottleneck_stage", FRAMES, STAGE_ROUTES)
     in_lat = [r["latency_ms"] for r in results]
     log_latency(f"service inference process latency_ms on {smi} "
@@ -2875,6 +2998,9 @@ def sharded_phase(K, state, bb_state, rig, smi, pred, frames, pred_bf16,
                 f"{launches}, K1 in sum mode {sums} of them")
             expect_launches(launches, BF16_IMAGE_PATH if p is pred_bf16
                             else HEATMAP_PATH, f"sharded world 1 {label}")
+            if p is pred_bf16:
+                expect_per_frame(launches, {"centernet_bf16": 1},
+                                 f"sharded world 1 {label}")
             if sums != FRAMES:
                 raise AssertionError(f"K1 ran {sums} times in sum mode")
             same = all(torch.equal(outs[0][k], ref[0][k])
@@ -2926,6 +3052,10 @@ def sharded_phase(K, state, bb_state, rig, smi, pred, frames, pred_bf16,
             got = res[r][label]
             expect_launches(got["launches"], path,
                             f"sharded rank {r} {label}")
+            if p is pred_bf16:
+                # the HDN runs whole on every rank: one launch a frame
+                expect_per_frame(got["launches"], {"centernet_bf16": 1},
+                                 f"sharded rank {r} {label}")
             if got["sum_launches"] != FRAMES:
                 raise AssertionError(f"rank {r}: K1 ran {got['sum_launches']}"
                                      " times in sum mode")

@@ -1,8 +1,9 @@
 """Static configuration of the PyTorch port.
 
 A copy of the reference package's `FVPConfig` with the same fields and
-defaults, and of `load_config`, which reads the reference-schema YAML files
-under configs/. Unknown keys raise. The port keeps its own copy so that it
+defaults, of `load_config`, which reads the reference-schema YAML files
+under configs/, and of `gen_config`, which writes one. Unknown keys
+raise. The port keeps its own copy so that it
 imports nothing of the JAX package.
 """
 
@@ -280,3 +281,113 @@ def load_config(path: str, **overrides: Any) -> FVPConfig:
     _apply_yaml(kw, doc)
     kw.update(overrides)
     return FVPConfig(**kw)
+
+
+def config_to_yaml_dict(cfg: FVPConfig) -> dict[str, Any]:
+    """FVPConfig -> reference-schema YAML document (the inverse of
+    `_apply_yaml`): `load_config(gen_config(cfg, path)) == cfg`.
+
+    A copy of the reference package's `config_to_yaml_dict`: sections and
+    keys follow the reference layout, so the dumped file is readable by
+    both packages' loaders; keys that are extensions of the schema
+    (DEVICE_RENDER, SCENE_FILE, LR_DECAY_*, RESNET.STEM/HEAD) only appear
+    when they differ from the defaults, so a default-config dump keeps to
+    the schema."""
+    d = FVPConfig()  # defaults, for extension-key elision
+
+    def ext(section: dict, key: str, val, default):
+        if val != default:
+            section[key] = val
+
+    dataset = {
+        "TRAIN_DATASET": cfg.train_dataset,
+        "TEST_DATASET": cfg.test_dataset,
+        "TRAIN_HEATMAP_SRC": cfg.train_heatmap_src,
+        "TEST_HEATMAP_SRC": cfg.test_heatmap_src,
+        "DATADIR": cfg.data_dir,
+        "CAMERA_NUM": cfg.num_views,
+        "ORI_IMAGE_SIZE": list(cfg.ori_image_size),
+        "IMAGE_SIZE": list(cfg.image_size),
+        "HEATMAP_SIZE": list(cfg.heatmap_size),
+        "NUM_JOINTS": cfg.num_joints,
+        "ROOT_JOINT_ID": (cfg.root_joint_id[0]
+                          if len(cfg.root_joint_id) == 1
+                          else list(cfg.root_joint_id)),
+        "DATA_AUGMENTATION": cfg.data_augmentation,
+    }
+    ext(dataset, "DEVICE_RENDER", cfg.device_render, d.device_render)
+
+    network = {
+        "PRETRAINED_BACKBONE": cfg.pretrained_backbone,
+        "NUM_CHANNEL_JOINT_FEAT": cfg.num_channel_joint_feat,
+        "NUM_CHANNEL_JOINT_HIDDEN": cfg.num_channel_joint_hidden,
+        "SIGMA": cfg.sigma,
+        "BETA": cfg.beta,
+    }
+    ext(network, "JLN_BAND_HEIGHT", cfg.jln_band_height, d.jln_band_height)
+    ext(network, "WHOLE_BAND_HEIGHT", cfg.whole_band_height,
+        d.whole_band_height)
+
+    train = {
+        "BATCH_SIZE": cfg.batch_size,
+        "BEGIN_EPOCH": cfg.begin_epoch,
+        "END_EPOCH": cfg.end_epoch,
+        "LR": cfg.lr,
+        "LAMBDA_LOSS_2D": cfg.lambda_loss_2d,
+        "LAMBDA_LOSS_1D": cfg.lambda_loss_1d,
+        "LAMBDA_LOSS_BBOX": cfg.lambda_loss_bbox,
+        "LAMBDA_LOSS_FUSED": cfg.lambda_loss_fused,
+    }
+    ext(train, "LR_DECAY_EPOCHS", list(cfg.lr_decay_epochs),
+        list(d.lr_decay_epochs))
+    ext(train, "LR_DECAY_FACTOR", cfg.lr_decay_factor, d.lr_decay_factor)
+    ext(train, "INIT_SCHEME", cfg.init_scheme, d.init_scheme)
+    ext(train, "ACCUMULATION_QUIRK", cfg.accumulation_quirk,
+        d.accumulation_quirk)
+
+    synthetic = {
+        "CAMERA_FILE": cfg.synthetic_camera_file,
+        "POSE_FILE": cfg.synthetic_pose_file,
+        "MAX_PEOPLE": cfg.synthetic_max_people,
+        "NUM_DATA": cfg.synthetic_num_data,
+        "DATA_AUGMENTATION": cfg.synthetic_augmentation,
+    }
+    ext(synthetic, "SCENE_FILE", cfg.synthetic_scene_file,
+        d.synthetic_scene_file)
+
+    resnet = {}
+    ext(resnet, "NUM_LAYERS", cfg.resnet_layers, d.resnet_layers)
+    ext(resnet, "STEM", cfg.backbone_stem, d.backbone_stem)
+    ext(resnet, "HEAD", cfg.backbone_head, d.backbone_head)
+
+    doc = {
+        "BACKBONE": cfg.backbone,
+        "OUTPUT_DIR": cfg.output_dir,
+        "PRINT_FREQ": cfg.print_freq,
+        "DATASET": dataset,
+        "SYNTHETIC": synthetic,
+        "NETWORK": network,
+        "TRAIN": train,
+        "CAPTURE_SPEC": {
+            "SPACE_SIZE": list(cfg.space_size),
+            "SPACE_CENTER": list(cfg.space_center),
+            "VOXELS_PER_AXIS": list(cfg.voxels_per_axis),
+            "MAX_PEOPLE": cfg.max_people,
+            "MIN_SCORE": cfg.min_score,
+        },
+        "INDIVIDUAL_SPEC": {
+            "SPACE_SIZE": list(cfg.ind_space_size),
+            "VOXELS_PER_AXIS": list(cfg.ind_voxels_per_axis),
+        },
+    }
+    if resnet:
+        doc["RESNET"] = resnet
+    return doc
+
+
+def gen_config(cfg: FVPConfig, path: str) -> None:
+    """Dump `cfg` to a reference-schema YAML file (see
+    config_to_yaml_dict)."""
+    with open(path, "w") as f:
+        yaml.safe_dump(config_to_yaml_dict(cfg), f,
+                       default_flow_style=None, sort_keys=False)

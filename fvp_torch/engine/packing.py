@@ -44,7 +44,7 @@ from fvp_torch.models.blocks import ResBlock, UpsampleBlock, set_compute_dtype
 from fvp_torch.models.cnns import C2CNet, CenterNet, P2PNet, WeightNet
 from fvp_torch.models.resnet import Bottleneck
 from fvp_torch.ops.kernels.c2cnet import pack_fragments
-from fvp_torch.ops.kernels.centernet import flatten_weights
+from fvp_torch.ops.kernels.centernet import flatten_bf16, flatten_weights
 from fvp_torch.ops.kernels.deconv_head import pack_deconv_weight
 
 _ENC = ("skip_res1", "encoder_res1", "skip_res2", "encoder_res2", "mid_res",
@@ -288,7 +288,9 @@ def pack_centernet_bf16(net: CenterNet) -> dict:
     two heads' 3x3 convs as one 32 -> 64 layer (hm's channels first) and
     "out" their 1x1 convs as one 64 -> 3 layer, hm's weights on channels
     0..31 of output 0 and size's on channels 32..63 of outputs 1-2, zeros
-    elsewhere (exact zeros in the sums); (1, bias) affines."""
+    elsewhere (exact zeros in the sums); (1, bias) affines. The persistent
+    kernel reads "wflat" and "affflat", every layer's weights and affines
+    in its own layout (ops/kernels/centernet.py::flatten_bf16)."""
     packed = _hourglass_bf16(net)
     hm0, size0 = _layer_bf16(net.output_hm[0]), _layer_bf16(
         net.output_size[0])
@@ -303,7 +305,7 @@ def pack_centernet_bf16(net: CenterNet) -> dict:
     w[0, c:, 1:] = size1["w"][0]
     packed["out"] = {"w": w, "aff": torch.cat([hm1["aff"], size1["aff"]],
                                               dim=1).contiguous()}
-    return packed
+    return flatten_bf16(packed)
 
 
 @torch.no_grad()

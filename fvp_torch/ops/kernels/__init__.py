@@ -89,7 +89,8 @@ def all_kernels() -> dict[str, Kernel]:
     from fvp_torch.ops.kernels import trunk, weightnet
     ks = [stem.STEM, deconv_head.DECONV, sampler.WHOLE_SAMPLE,
           sampler.WHOLE_SAMPLE_SUM, sampler.PERSON_LAYOUT,
-          sampler.PERSON_PLANES, centernet.CENTERNET, softargmax.SOFT_ARGMAX,
+          sampler.PERSON_PLANES, centernet.CENTERNET,
+          centernet.CENTERNET_BF16, softargmax.SOFT_ARGMAX,
           weightnet.WEIGHTNET_POOL, weightnet.WEIGHTNET_POOL_BF16,
           centernet.CONV_BF16.wgmma, centernet.CONV_BF16.wmma,
           centernet.POOL_BF16,

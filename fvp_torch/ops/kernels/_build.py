@@ -30,9 +30,10 @@ SIGNATURES = {
     "fvp_person_layout": [_P, _P] + [_I] * 5 + [_P],
     "fvp_person_planes": [_P] * 6 + [_I] * 8 + [_F] * 7 + [_P],
     "fvp_centernet": [_P] * 5 + [_I] * 5 + [_P],
+    "fvp_centernet_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "fvp_soft_argmax": [_P] * 6 + [_I] * 6 + [_F, _P],
     "fvp_weightnet_pool": [_P] * 7 + [_I] * 11 + [_P],
-    "fvp_weightnet_pool_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    "fvp_weightnet_pool_bf16": [_P] * 6 + [_I] * 11 + [_P],
     "fvp_stem": [_P] * 4 + [_I] * 10 + [_P],
     "fvp_deconv_stage": [_P] * 4 + [_I] * 10 + [_P],
     "fvp_conv_bf16": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 9 + [_P],

@@ -29,14 +29,17 @@ views into it.
 
 `centernet_bf16` is the bf16 route that `compute_dtype='bfloat16'` takes:
 the arithmetic of the TPU kernel (fvp_tpu/ops/pallas/hourglass.py::
-_centernet_kernel), which computes in bf16 inside. It runs the hourglass
-body on the bf16 conv kernels of csrc/conv_bf16.cu, as the `fuse_p2p`
-P2PNet does (ops/kernels/hourglass.py::body: the same rounding points),
-then the two heads' 3x3 convs as one 32 -> 64 conv rounded to bf16 after
-its bias and ReLU, and their 1x1 convs as one 64 -> 3 conv (block-diagonal
-weights) that sums in float32 and adds its float32 bias: 24 conv launches
-and 2 pools a call. Its `packed` comes from
-engine/packing.py::pack_centernet_bf16.
+_centernet_kernel), which computes in bf16 inside, rounding where the
+`fuse_p2p` P2PNet rounds (ops/kernels/hourglass.py::body), then the two
+heads' 3x3 convs as one 32 -> 64 conv rounded to bf16 after its bias and
+ReLU, and their 1x1 convs as one 64 -> 3 conv (block-diagonal weights)
+that sums in float32 and adds its float32 bias. A CUDA tensor launches
+the persistent bf16 kernel (csrc/centernet_bf16.cu) once, on the stages
+of `centernet_bf16_plan`; its plain version `centernet_bf16_plain` runs
+the same ops layer by layer (`run_bf16` with conv_bf16.PLAIN), and
+`run_bf16` with `_CUDA_BF16`, 24 conv and 2 pool launches on
+csrc/conv_bf16.cu, is the route's earlier lowering, kept as a yardstick.
+Its `packed` comes from engine/packing.py::pack_centernet_bf16.
 """
 
 from __future__ import annotations
@@ -67,6 +70,11 @@ ALIGN = 64               # arena buffers start on 256-byte boundaries
 
 _ENC = ("skip_res1", "encoder_res1", "skip_res2", "encoder_res2", "mid_res",
         "decoder_res2", "decoder_res1")
+# (Cin, Cout) of each ResBlock of the encoder-decoder
+_CHANS = {"skip_res1": (32, 32), "encoder_res1": (32, 64),
+          "skip_res2": (64, 64), "encoder_res2": (64, 128),
+          "mid_res": (128, 128), "decoder_res2": (128, 128),
+          "decoder_res1": (64, 64)}
 
 # The fields of one op of the kernel's op table, in the order of the enum
 # `Field` in csrc/centernet.cu (tests/test_torch_centernet_plan.py checks
@@ -170,12 +178,8 @@ def weight_entries(J: int) -> list[tuple[tuple[str, ...], tuple[int, ...]]]:
 
     layer(("front",), 7, J, 16)
     res(("res0",), 16, 32)
-    chans = {"skip_res1": (32, 32), "encoder_res1": (32, 64),
-             "skip_res2": (64, 64), "encoder_res2": (64, 128),
-             "mid_res": (128, 128), "decoder_res2": (128, 128),
-             "decoder_res1": (64, 64)}
     for name in _ENC:
-        res(("enc", name), *chans[name])
+        res(("enc", name), *_CHANS[name])
     layer(("enc", "decoder_upsample2"), 2, 128, 64)
     layer(("enc", "decoder_upsample1"), 2, 64, 32)
     layer(("heads",), 3, 32, 64)
@@ -405,30 +409,33 @@ def _stages(J: int):
     ]
 
 
-@functools.lru_cache(maxsize=None)
-def centernet_plan(B: int, H: int, W: int, J: int) -> Plan:
-    """The kernel's schedule for a (B, H, W, J) BEV map, on shapes alone:
-    stages of ops, each op's tiling, the arena's buffers and the kernel's
-    shared memory. H and W must be multiples of 4 (two pooling levels)."""
+def _dims(H: int, W: int) -> dict:
+    """The map's size at each of the net's three levels."""
     if H % 4 or W % 4 or H < 4 or W < 4:
         raise ValueError(f"centernet_plan: map {H}x{W}, needs multiples "
                          "of 4")
-    spec = _stages(J)
-    dims = {0: (H, W), 1: (H // 2, W // 2), 2: (H // 4, W // 4)}
+    return {0: (H, W), 1: (H // 2, W // 2), 2: (H // 4, W // 4)}
+
+
+def _arena(spec, dims, B: int, heads_out: bool):
+    """The arena's buffers (Buf, in order of first write) and its size in
+    elements: first fit by lifetimes [write, last read], aligned to ALIGN
+    elements. With `heads_out` the heads' outputs hm and size are buffers
+    too, living to the end; without, they are not in the arena."""
     shapes, write, last = {}, {}, {}
     for s, stage in enumerate(spec):
         for (name, kind, k, cin, cout, lvl, x, pool, wpath, relu, res,
              out) in stage:
             h, w = dims[lvl]
-            shapes[out] = (B, h, w, 1 if out == "hm" else cout)
-            write[out] = s
+            if out != "hm" or heads_out:
+                shapes[out] = (B, h, w, 1 if out == "hm" else cout)
+                write[out] = s
             for r in (x, res[1]):
                 if r is not None:
                     last[r] = s
-    shapes["size"] = (B, H, W, 2)
-    write["size"] = len(spec) - 1
-    # arena: first fit by lifetimes [write, last read]; outputs live to the
-    # end
+    if heads_out:
+        shapes["size"] = (B, *dims[0], 2)
+        write["size"] = len(spec) - 1
     order = sorted(shapes, key=lambda n: write[n])
     placed, bufs = [], []
     for name in order:
@@ -443,7 +450,18 @@ def centernet_plan(B: int, H: int, W: int, J: int) -> Plan:
                     off, moved = o + n, True
         placed.append((off, size, lo, hi))
         bufs.append(Buf(name, shapes[name], off, lo, hi))
-    arena = max(o + n for o, n, _, _ in placed)
+    return tuple(bufs), max(o + n for o, n, _, _ in placed)
+
+
+@functools.lru_cache(maxsize=None)
+def centernet_plan(B: int, H: int, W: int, J: int) -> Plan:
+    """The kernel's schedule for a (B, H, W, J) BEV map, on shapes alone:
+    stages of ops, each op's tiling, the arena's buffers and the kernel's
+    shared memory. H and W must be multiples of 4 (two pooling levels)."""
+    spec = _stages(J)
+    dims = _dims(H, W)
+    bufs, arena = _arena(spec, dims, B, heads_out=True)
+    shapes = {b.name: b.shape for b in bufs}
     boff = {b.name: b.off for b in bufs}
     woff = weight_offsets(J)
 
@@ -482,7 +500,7 @@ def centernet_plan(B: int, H: int, W: int, J: int) -> Plan:
         stages.append((first, len(ops)))
     smem = max(op["smem"] for op in ops)
     max_tiles = max(sum(op["tiles"] for op in ops[a:b]) for a, b in stages)
-    return Plan(B, H, W, J, tuple(ops), tuple(stages), tuple(bufs), arena,
+    return Plan(B, H, W, J, tuple(ops), tuple(stages), bufs, arena,
                 smem, max_tiles)
 
 
@@ -493,7 +511,7 @@ _TABLES: dict = {}
 
 def _tables(plan: Plan, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The plan's op and stage tables on the device (made once)."""
-    key = (plan.B, plan.H, plan.W, plan.J, device)
+    key = (type(plan), plan.B, plan.H, plan.W, plan.J, device)
     if key not in _TABLES:
         _TABLES[key] = (
             torch.tensor(plan.table(), dtype=torch.int32, device=device),
@@ -544,15 +562,315 @@ def centernet_forward(packed: dict, bev: torch.Tensor):
     return outputs(plan, arena)
 
 
+
+
 # -- the bf16 route ------------------------------------------------------------
+#
+# The persistent bf16 kernel (csrc/centernet_bf16.cu) walks the same stages
+# as the float32 one (_stages), on tensor cores: a tile is th x 8 output
+# pixels x tn channels, its th / 2 M fragments of 16 pixels (2 rows x 8
+# columns; an up-conv's fragment is the 16 pixels of one output parity)
+# split over the block's 8 warps as wm = th / 2 pixel fragments by wn =
+# 8 / wm channel groups of nf n8 fragments each (no K groups: every warp
+# sums its whole K in order).
+
+CENTERNET_BF16 = Kernel("centernet_bf16", "fvp_centernet_bf16")
+
+# The fields of one op of the bf16 kernel's op table, in the order of the
+# enum `Field` in csrc/centernet_bf16.cu (tests/test_torch_bf16_plans.py
+# checks that the two agree).
+BF16_OP_FIELDS = (
+    "kind", "k", "h", "w", "cin", "cinp", "cout",
+    "in_src", "in_off", "in_pool", "w_off", "aff_off", "relu",
+    "res_kind", "res_off",
+    "p_in_off", "p_cin", "p_pool", "p_w_off", "p_aff_off",
+    "out_off", "out2_off", "o_w_off", "o_aff_off",
+    "th", "tw", "tn", "wm", "wn", "nf", "ck", "ckp",
+    "tiles_y", "tiles_x", "tiles_c", "tiles", "xs", "xsp", "xf", "wf")
+assert len(BF16_OP_FIELDS) <= OPW
+HID_STRIDE = 72          # bf16 elements a pixel of the heads' hidden tile
+
+
+def round16(c: int) -> int:
+    return (c + 15) // 16 * 16
+
+
+def bf16_layers(J: int) -> list[tuple[tuple[str, ...], int, int, int]]:
+    """(path in the packed dict, taps, Cin, Cout) of every layer the bf16
+    kernel reads, in the order of packed["wflat"] and packed["affflat"]."""
+    out = []
+
+    def res(path, cin, cout):
+        out.append((path + ("c0",), 9, cin, cout))
+        out.append((path + ("c1",), 9, cout, cout))
+        if cin != cout:
+            out.append((path + ("proj",), 1, cin, cout))
+
+    out.append((("front",), 49, J, 16))
+    res(("res0",), 16, 32)
+    for name in _ENC:
+        res(("enc", name), *_CHANS[name])
+    out.append((("enc", "decoder_upsample2"), 4, 128, 64))
+    out.append((("enc", "decoder_upsample1"), 4, 64, 32))
+    out.append((("heads",), 9, 32, 64))
+    out.append((("out",), 1, 64, 3))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_offsets(J: int) -> dict:
+    """path -> (bf16 offset in packed["wflat"], float offset in
+    packed["affflat"]); and the totals "w_total", "aff_total"."""
+    offs, wo, ao = {}, 0, 0
+    for path, taps, cin, cout in bf16_layers(J):
+        offs[path] = (wo, ao)
+        wo += taps * cout * round16(cin)
+        ao += 2 * cout
+    offs["w_total"], offs["aff_total"] = wo, ao
+    return offs
+
+
+def flatten_bf16(packed: dict) -> dict:
+    """Adds what the bf16 kernel reads to a packed bf16 CenterNet
+    (engine/packing.py::pack_centernet_bf16): packed["wflat"], every
+    layer's bf16 weights as (taps, Cout, Cin rounded up to 16), taps
+    row-major (an up-conv's tap 2 r + s), zero past Cin, so that a tile
+    stages rows of input channels with 16-byte copies; packed["affflat"],
+    every layer's float32 (scale, shift) rows (the heads' (1, bias)). The
+    layers that the plain version reads stay as they are."""
+    J = packed["front"]["w"].shape[1]
+    ws, affs = [], []
+    for path, taps, cin, cout in bf16_layers(J):
+        lay = _get(packed, path)
+        if lay["w"].numel() != taps * cin * cout or \
+                tuple(lay["aff"].shape) != (2, cout):
+            raise ValueError(f"centernet_bf16 layer {path}: w "
+                             f"{tuple(lay['w'].shape)}, aff "
+                             f"{tuple(lay['aff'].shape)}; expected {taps} "
+                             f"taps of {cin} -> {cout}")
+        w = lay["w"].reshape(taps, cin, cout).transpose(1, 2)
+        wk = torch.zeros((taps, cout, round16(cin)), dtype=torch.bfloat16,
+                         device=w.device)
+        wk[:, :, :cin] = w
+        ws.append(wk.reshape(-1))
+        affs.append(lay["aff"].float().reshape(-1))
+    packed["wflat"] = torch.cat(ws)
+    packed["affflat"] = torch.cat(affs)
+    return packed
+
+
+class Bf16Plan(NamedTuple):
+    B: int
+    H: int
+    W: int
+    J: int
+    ops: tuple            # one dict per op (BF16_OP_FIELDS, "name",
+                          # "stage", "b", "smem")
+    stages: tuple         # (first op, end op) per stage
+    bufs: tuple           # Buf (offsets in bf16 elements), hm and size not
+                          # among them: they go to the float32 output
+    arena_elems: int      # bf16 elements of the arena
+    smem_bytes: int
+    max_tiles: int
+
+    def table(self) -> list[int]:
+        out = []
+        for op in self.ops:
+            row = [int(op[f]) for f in BF16_OP_FIELDS]
+            out += row + [0] * (OPW - len(row))
+        return out
+
+    def stage_table(self) -> list[int]:
+        return [i for s in self.stages for i in s]
+
+    def buf(self, name: str) -> Buf:
+        return next(b for b in self.bufs if b.name == name)
+
+
+def xstride8(ck: int) -> int:
+    """bf16 elements a row of a staged chunk (a pixel's ck channels, or an
+    output channel's ck weights): padded so that the row's stride in
+    16-byte units is odd, so the 8 rows of an ldmatrix phase hit 8
+    distinct bank quads."""
+    return ck if (ck // 8) % 2 else ck + 8
+
+
+def _bf16_smem(kind, k, th, tw, tn, ck, ckp, p_cin, nch):
+    """(xs, xsp, xf, wf, bytes) of one op's tiles. A staging buffer holds a
+    chunk's input patch (xf elements, the larger of the main chunks' and
+    the projection's) and then its weights; buffers are xf + wf apart (wf
+    the larger weights of the two where they alternate). Two buffers (one
+    for a single chunk); where one main chunk is followed by the
+    projection's, the second buffer holds only the projection's weights
+    after its patch. The heads' hidden tile lies past the first buffer
+    (the block keeps that buffer's weights for its next tile)."""
+    xs, xsp = xstride8(ck), xstride8(ckp) if p_cin else 0
+    if kind == UPCONV:
+        xf, wf = (th // 2) * (tw // 2) * xs, 4 * tn * xs
+    else:
+        xf, wf = (th + k - 1) * (tw + k - 1) * xs, k * k * tn * xs
+    staging = min(2, nch) * (xf + wf)
+    if p_cin:
+        xf, wfp = max(xf, th * tw * xsp), tn * xsp
+        if nch == 2:                    # one main chunk, the projection's
+            staging = 2 * xf + wf + wfp
+        else:
+            wf = max(wf, wfp)
+            staging = 2 * (xf + wf)
+    hid = th * tw * HID_STRIDE if kind == HEADS else 0
+    return xs, xsp, xf, wf, 2 * max(staging, xf + wf + hid)
+
+
+def _choose_bf16(op, B, sms):
+    """The op's tiling: th rows (2, 4 or 8) of 8 columns by tn channels,
+    the input channels in one chunk of at most 128 where its staging fits
+    SMEM_TARGET, else in chunks of 32 (the 7x7 front, whose 49 taps'
+    weights fill the staging, in chunks of 16 where 32 do not fit), and
+    the projection's in one more; the cheapest by tiles per SM (rounded
+    up) times one tile's time,
+    in units of one warp's k16 step (an A and B ldmatrix, nf mma), with
+    its staging (16-byte copies spread over the block) and a fixed cost
+    per chunk and per tile. An up-conv takes th = 8 (a fragment per
+    parity), the heads all 64 channels in one tile (their 1x1 convs'
+    epilogue)."""
+    kind, k, cin, cout = op["kind"], op["k"], op["cin"], op["cout"]
+    cinp, H, W, p_cin = op["cinp"], op["h"], op["w"], op["p_cin"]
+    ckp = p_cin
+    steps = (1 if kind == UPCONV else k * k) * (cinp // 16) + p_cin // 16
+    chunks = (cinp, 32, 16) if op["in_src"] == SRC_BEV else (cinp, 32)
+    best = None
+    for th in (2, 4, 8):
+        for tn in (16, 32, 64):
+            wm = th // 2
+            wn = WARPS // wm
+            nf = tn // (8 * wn)
+            if nf not in (1, 2, 4) or tn % (8 * wn) or cout % tn:
+                continue
+            if (kind == HEADS and tn != cout) or (kind == UPCONV and th != 8):
+                continue
+            # all input channels in one chunk where they fit (one round
+            # trip to L2 a tile), else chunks of 32 (or the front's of 16)
+            sm = None
+            for ck in (c for c in chunks if c <= 128 and cinp % c == 0):
+                nch = cinp // ck + (1 if p_cin else 0)
+                sm = _bf16_smem(kind, k, th, 8, tn, ck, ckp, p_cin, nch)
+                if sm[-1] <= SMEM_TARGET:
+                    break
+            if sm is None or sm[-1] > SMEM_TARGET:
+                continue
+            tiles = B * -(-H // th) * -(-W // 8) * (cout // tn)
+            per_tile = (steps * (1 + nf) + nch * (sm[2] + sm[3])
+                        / (THREADS * 8) * 4 + 16 * nch + 40)
+            key = (-(-tiles // sms) * per_tile, tiles)
+            if best is None or key < best[0]:
+                best = (key, dict(
+                    th=th, tw=8, tn=tn, wm=wm, wn=wn, nf=nf, ck=ck, ckp=ckp,
+                    tiles_y=-(-H // th), tiles_x=-(-W // 8),
+                    tiles_c=cout // tn, tiles=tiles, xs=sm[0], xsp=sm[1],
+                    xf=sm[2], wf=sm[3], smem=sm[4]))
+    if best is None:
+        raise ValueError(f"centernet_bf16_plan: no tiling for {op['name']} "
+                         f"({cin} -> {cout})")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def centernet_bf16_plan(B: int, H: int, W: int, J: int) -> Bf16Plan:
+    """The bf16 kernel's schedule for a (B, H, W, J) BEV map, on shapes
+    alone: the stages of `_stages`, each op's tiling (`_choose_bf16`), the
+    bf16 arena's buffers and the kernel's shared memory. H and W must be
+    multiples of 4 (two pooling levels); raises where no tiling fits."""
+    spec = _stages(J)
+    dims = _dims(H, W)
+    bufs, arena = _arena(spec, dims, B, heads_out=False)
+    shapes = {b.name: b.shape for b in bufs}
+    boff = {b.name: b.off for b in bufs}
+    offs = bf16_offsets(J)
+    ops, stages = [], []
+    for s, stage in enumerate(spec):
+        first = len(ops)
+        for (name, kind, k, cin, cout, lvl, x, pool, wpath, relu, res,
+             out) in stage:
+            h, w = dims[lvl]
+            op = dict.fromkeys(BF16_OP_FIELDS, 0)
+            op.update(
+                name=name, stage=s, kind=kind, k=k, b=B, h=h, w=w, cin=cin,
+                cinp=round16(cin), cout=cout,
+                in_src=SRC_BEV if x == "bev" else SRC_ARENA,
+                in_off=0 if x == "bev" else boff[x], in_pool=int(pool),
+                w_off=offs[wpath][0], aff_off=offs[wpath][1],
+                relu=int(relu), res_kind=res[0])
+            if res[0] in (RES_ADD, RES_SKIP):
+                op["res_off"] = boff[res[1]]
+            elif res[0] == RES_PROJ:
+                pp = wpath[:-1] + ("proj",)
+                op.update(p_in_off=boff[res[1]], p_cin=shapes[res[1]][3],
+                          p_pool=int(res[2]), p_w_off=offs[pp][0],
+                          p_aff_off=offs[pp][1])
+            if kind == HEADS:
+                op.update(out_off=0, out2_off=B * H * W,
+                          o_w_off=offs[("out",)][0],
+                          o_aff_off=offs[("out",)][1])
+            else:
+                op["out_off"] = boff[out]
+            op.update(_choose_bf16(op, B, H100_SMS))
+            ops.append(op)
+        stages.append((first, len(ops)))
+    smem = max(op["smem"] for op in ops)
+    max_tiles = max(sum(op["tiles"] for op in ops[a:b]) for a, b in stages)
+    return Bf16Plan(B, H, W, J, tuple(ops), tuple(stages), bufs, arena, smem,
+                    max_tiles)
+
+
+def launch_bf16(packed: dict, bev: torch.Tensor, arena: torch.Tensor,
+                out: torch.Tensor, first: int = 0,
+                end: int | None = None) -> None:
+    """Run stages [first, end) of the map's bf16 plan on `arena` (bf16) and
+    `out` (float32, hm then size): one cooperative launch with a barrier
+    between stages (one plain launch for a single stage)."""
+    B, H, W, J = bev.shape
+    plan = centernet_bf16_plan(B, H, W, J)
+    end = len(plan.stages) if end is None else end
+    offs = bf16_offsets(J)
+    check(bev, "bev")
+    check(packed["wflat"], "wflat", (offs["w_total"],), dtype=torch.bfloat16,
+          device=bev.device)
+    check(packed["affflat"], "affflat", (offs["aff_total"],),
+          device=bev.device)
+    check(arena, "arena", (plan.arena_elems,), dtype=torch.bfloat16,
+          device=bev.device)
+    check(out, "out", (3 * B * H * W,), device=bev.device)
+    ops, stages = _tables(plan, bev.device)
+    tiles = max(sum(op["tiles"] for op in plan.ops[a:b])
+                for a, b in plan.stages[first:end])
+    CENTERNET_BF16(ptr(bev), ptr(packed["wflat"]), ptr(packed["affflat"]),
+                   ptr(arena), ptr(out), ptr(ops), ptr(stages),
+                   len(plan.ops), len(plan.stages), first, end, tiles,
+                   plan.smem_bytes, int(end - first > 1))
+
+
+def bf16_outputs(plan: Bf16Plan, out: torch.Tensor):
+    """(hm, size): views into the float32 output."""
+    n = plan.B * plan.H * plan.W
+    return (out[:n].view(plan.B, plan.H, plan.W, 1),
+            out[n:].view(plan.B, plan.H, plan.W, 2))
+
 
 def bf16_launches() -> int:
+    return CENTERNET_BF16.launches
+
+
+def layered_bf16_launches() -> int:
+    """Launches of the layer-by-layer bf16 route (`_CUDA_BF16`)."""
     return CONV_BF16.launches + POOL_BF16.launches
 
 
 def run_bf16(packed: dict, bev: torch.Tensor, ops):
-    """The bf16 CenterNet through `ops` (conv_bf16.PLAIN or the kernels'
-    ops): (B, X, Y, J) -> (hm (B, X, Y, 1), size (B, X, Y, 2)) float32."""
+    """The bf16 CenterNet layer by layer through `ops`: conv_bf16.PLAIN
+    (the plain version), or `_CUDA_BF16`, the 24 conv and 2 pool launches
+    on csrc/conv_bf16.cu that the route took before its persistent kernel,
+    kept as a yardstick and called by nothing on the model's path:
+    (B, X, Y, J) -> (hm (B, X, Y, 1), size (B, X, Y, 2)) float32."""
     x = hourglass.body(packed, bev, ops)
     h = ops.conv(x, packed["heads"], relu=True)
     out = ops.conv(h, packed["out"], out_dtype=torch.float32)
@@ -566,12 +884,19 @@ def centernet_bf16_plain(packed: dict, bev: torch.Tensor):
 
 def centernet_bf16(packed: dict, bev: torch.Tensor):
     """CenterNet's bf16 route on the BEV map (B, X, Y, J) float32 -> (hm
-    (B, X, Y, 1), size (B, X, Y, 2)) float32: the kernels for a CUDA
-    tensor, the plain version for a CPU tensor. X and Y must divide by 4
-    (two pools)."""
+    (B, X, Y, 1), size (B, X, Y, 2)) float32: one launch of the persistent
+    bf16 kernel for a CUDA tensor, the plain version for a CPU tensor. X
+    and Y must divide by 4 (two pools)."""
     if bev.shape[1] % 4 or bev.shape[2] % 4:
         raise ValueError(f"centernet_bf16: map {tuple(bev.shape[1:3])}, "
                          "needs multiples of 4")
     if not bev.is_cuda:
         return centernet_bf16_plain(packed, bev)
-    return run_bf16(packed, bev.contiguous(), _CUDA_BF16)
+    bev = bev.contiguous()
+    B, H, W, J = bev.shape
+    plan = centernet_bf16_plan(B, H, W, J)
+    arena = torch.empty(plan.arena_elems, dtype=torch.bfloat16,
+                        device=bev.device)
+    out = torch.empty(3 * B * H * W, dtype=torch.float32, device=bev.device)
+    launch_bf16(packed, bev, arena, out)
+    return bf16_outputs(plan, out)

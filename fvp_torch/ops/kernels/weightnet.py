@@ -17,8 +17,11 @@ Python on shapes alone, so that the CPU tests can check it.
 takes: the TPU kernel's own arithmetic (planes and conv weights rounded
 to bf16, float32 sums, the float32 affine and ReLU rounded to bf16, the
 2x2 max in bf16, the mean in float32), on mma.sync in
-`fvp_weightnet_pool_bf16` (csrc/weightnet.cu), one block per (n, j) map.
-Its `packed` comes from engine/packing.py::pack_weightnet_bf16.
+`fvp_weightnet_pool_bf16` (csrc/weightnet.cu): one block per (n, band of
+rows), its band read with coalesced loads into joint-major bf16 tiles,
+one warp per joint, the band sums combined in band order as in the
+float32 kernel; `weightnet_bf16_plan` picks the band. Its `packed` comes
+from engine/packing.py::pack_weightnet_bf16.
 """
 
 from __future__ import annotations
@@ -168,6 +171,86 @@ def launch(planes: torch.Tensor, packed: dict, out: torch.Tensor,
 
 # -- the bf16 route ------------------------------------------------------------
 
+MAX_WARPS_BF16 = 16      # the bf16 kernel's launch bound, 512 threads
+
+
+class WeightNetBf16Plan(NamedTuple):
+    """One launch of the bf16 kernel over (N, A, B, J) planes: `bands`
+    bands of `rows` map rows per n (the last may be shorter), each in
+    chunks of `joints` joints (J unless a band of all joints would not
+    fit), N x bands x chunks blocks of `warps` warps (each warp takes the
+    chunk's joints w, w + warps, ...), each joint's bf16 tile `plane`
+    elements of (rows + 2) x (B + 2), `smem` bytes of shared memory."""
+    N: int
+    A: int
+    B: int
+    J: int
+    rows: int
+    bands: int
+    joints: int
+    warps: int
+    plane: int
+    smem: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.J // self.joints)
+
+    @property
+    def blocks(self) -> int:
+        return self.N * self.bands * self.chunks
+
+
+def _bf16_fits(rows: int, B: int, joints: int) -> bool:
+    return (2 * joints * (rows + 2) * (B + 2) <= MAX_SMEM
+            and (rows + 2) * (B * joints) ** 2 < 2 ** 32)
+
+
+def _bf16_warps(joints: int) -> int:
+    """As many warps as joints, at most 16, each with the same number of
+    joints."""
+    return -(-joints // -(-joints // MAX_WARPS_BF16))
+
+
+@functools.lru_cache(maxsize=None)
+def weightnet_bf16_plan(N: int, A: int, B: int, J: int,
+                        rows: int | None = None,
+                        joints: int | None = None) -> WeightNetBf16Plan:
+    """The bf16 kernel's bands: all J joints in a block where a band of 2
+    rows fits, else the fewest chunks of joints that do (unless `joints`
+    is given); then the even `rows` (unless given) that minimises the
+    busiest SM's rows, (rows + 2) per block (its halo) times the blocks it
+    runs when the blocks spread over the 132 SMs, as weightnet_plan does;
+    ties go to fewer rows (fewer, larger blocks timed faster on the H100:
+    PERF.md §6). Any even A and B, any J."""
+    if A < 2 or B < 2 or A % 2 or B % 2 or N < 1 or J < 1:
+        raise ValueError(f"weightnet_bf16_plan: A = {A}, B = {B} must be "
+                         f"even, N = {N} and J = {J} >= 1")
+    if joints is None:
+        chunks = 1
+        while not _bf16_fits(2, B, -(-J // chunks)) and -(-J // chunks) > 1:
+            chunks += 1
+        joints = -(-J // chunks)
+    elif not 1 <= joints <= J:
+        raise ValueError(f"weightnet_bf16_plan: joints = {joints} of {J}")
+    chunks = -(-J // joints)
+    fits = [r for r in range(2, A + 1, 2) if _bf16_fits(r, B, joints)]
+    if rows is None:
+        if not fits:
+            raise ValueError(f"weightnet_bf16_plan: no band of a {A} x {B} "
+                             f"map fits in shared memory")
+
+        rows = min(fits, key=lambda r: (
+            math.ceil(N * chunks * math.ceil(A / r) / H100_SMS) * (r + 2),
+            r))
+    elif rows not in fits:
+        raise ValueError(f"weightnet_bf16_plan: rows = {rows} (even, its "
+                         f"tile in shared memory)")
+    plane = (rows + 2) * (B + 2)
+    return WeightNetBf16Plan(N, A, B, J, rows, math.ceil(A / rows), joints,
+                             _bf16_warps(joints), plane, 2 * joints * plane)
+
+
 def weightnet_pool_bf16_plain(planes: torch.Tensor,
                               packed: dict) -> torch.Tensor:
     """(N, A, B, J) -> (N, J, C) as the TPU kernel computes it
@@ -203,6 +286,19 @@ def weightnet_pool_bf16(planes: torch.Tensor, packed: dict) -> torch.Tensor:
     out = torch.empty((N, J, C), dtype=torch.float32, device=planes.device)
     if N == 0:
         return out
-    WEIGHTNET_POOL_BF16(ptr(planes), ptr(w), ptr(aff), ptr(out), N, A, B, J,
-                        C)
+    launch_bf16(planes, packed, out, weightnet_bf16_plan(N, A, B, J))
     return out
+
+
+def launch_bf16(planes: torch.Tensor, packed: dict, out: torch.Tensor,
+                plan: WeightNetBf16Plan) -> None:
+    """One launch of the bf16 kernel on checked tensors, with its band
+    scratch (N, bands, J, C)."""
+    N, A, B, J = plan.N, plan.A, plan.B, plan.J
+    partial = torch.empty((N, plan.bands, J, C), dtype=torch.float32,
+                          device=planes.device)
+    WEIGHTNET_POOL_BF16(ptr(planes), ptr(packed["w"]), ptr(packed["aff"]),
+                        ptr(partial),
+                        ptr(last_block_counters(planes.device, N)), ptr(out),
+                        N, A, B, J, C, plan.rows, plan.bands, plan.joints,
+                        plan.warps, plan.plane, plan.smem)

@@ -6,6 +6,10 @@ inputs (flagship widths, seeded weights, frame 0's heatmaps).
         [--set old|new] [--source FILE]
     python -m fvp_torch.tools.kernel_parts --kernel centernet
         [--variants shipped,no_compute,...]
+    python -m fvp_torch.tools.kernel_parts --kernel centernet_bf16
+        [--set trace] [--source FILE] [--repeat 8]
+    python -m fvp_torch.tools.kernel_parts --kernel weightnet_pool_bf16
+        [--rows R] [--repeat 8]
     python -m fvp_torch.tools.kernel_parts --kernel c2cnet|weightnet_pool
         [--set old --source FILE] [--rows R]
     python -m fvp_torch.tools.kernel_parts --kernel c2cnet --set trace
@@ -25,7 +29,17 @@ only their device time counts.
   --fmad=false; `git show <parent>:fvp_torch/csrc/person_planes.cu`),
   `--set new` the tree's pixel-major kernel, on its layout made once
   (the planes kernel alone).
-- centernet, the one cooperative launch at (1, 80, 80, 15).
+- centernet, the one cooperative launch at (1, 80, 80, 15);
+  centernet_bf16, the bf16 kernel's one launch there (its weights packed
+  by pack_centernet_bf16), with the mma loops, the staging, the grid
+  barrier, the weight prefetch across it or the epilogue's stores off, or
+  two blocks an SM; `--set trace`: block 0's cycles per stage (a stamped
+  build: each tile's staging, K sums and epilogue, the wait at the grid
+  barrier and the barrier); `--repeat 8` at the eval batch's (8, 80, 80,
+  15), `--source FILE` an earlier source on the tree's plan;
+- weightnet_pool_bf16, the tree's banded bf16 pool on chip_smoke's K5
+  input (`--repeat 8`: the eval batch's 240 maps, as chip_smoke repeats
+  them) on its plan, or on bands of `--rows` rows.
 - c2cnet and weightnet_pool, `--set new`: the tree's kernels on their
   plans (`--rows` gives weightnet_pool's band height), with the GEMM, the
   weight copies, the epilogue's stores or the zeroing off, the generic
@@ -127,6 +141,55 @@ CENTERNET = [
     ("two_blocks_per_sm", [(r"__launch_bounds__\(kThreads, 1\)",
                             "__launch_bounds__(kThreads, 2)")], []),
 ]
+CENTERNET_BF16 = [
+    ("shipped", [], []),
+    ("no_compute", [(r"for \(int dy = 0; dy < k; \+\+dy\)",
+                     "for (int dy = 0; dy < 0; ++dy)")], []),
+    ("no_staging", [(r"\n  stage\(0, 0\);", "\n"),
+                    (r"\n      stage\(ch \+ 1, \(ch \+ 1\) & 1\);",
+                     "\n")], []),
+    ("no_barrier", [(r"cg::this_grid\(\)\.sync\(\);", "")], []),
+    ("no_stores", [(r"\*reinterpret_cast<uint32_t\*>\(out \+ o\) = "
+                    r"pack2\(v0, v1\);",
+                    "if (v0 == 1234.5f) *reinterpret_cast<uint32_t*>"
+                    "(out + o) = pack2(v0, v1);")], []),
+    ("two_blocks_per_sm", [(r"__launch_bounds__\(kThreads, 1\)",
+                            "__launch_bounds__(kThreads, 2)")], []),
+]
+# block 0's events, (code, cycles since the launch) pairs in a device
+# array that an added entry point copies out: 1 a tile's first chunk
+# staged, 2 its K summed, 3 its epilogue done, 4 the block at the grid
+# barrier, 5 past it
+_STAMP = ("if (blockIdx.x == 0 && threadIdx.x == 0 && g_ev < 256) {{ "
+          "g_tr[2 * g_ev] = {code}.f; g_tr[2 * g_ev + 1] = "
+          "(float)(clock64() - g_t0); ++g_ev; }}")
+CENTERNET_BF16_TRACE = [("trace", [
+    (re.escape("typedef __nv_bfloat16 bf16;\n"),
+     "typedef __nv_bfloat16 bf16;\n__device__ long long g_t0;\n"
+     "__device__ int g_ev;\n__device__ float g_tr[512];\n"),
+    (re.escape("}  // namespace\n"),
+     "}  // namespace\n\nFVP_API int fvp_trace_copy(float* dst, "
+     "void* stream) {\n  return (int)cudaMemcpyFromSymbolAsync(dst, g_tr, "
+     "sizeof(g_tr), 0, cudaMemcpyDeviceToDevice, (cudaStream_t)stream);"
+     "\n}\n"),
+    (re.escape("    __syncthreads();\n    const uint32_t xs = "),
+     "    __syncthreads();\n    if (ch == 0) " + _STAMP.format(code=1)
+     + "\n    const uint32_t xs = "),
+    (re.escape("  // the epilogue: fragment rows g"),
+     "  " + _STAMP.format(code=2) + "\n  // the epilogue: fragment rows g"),
+    (re.escape("  __syncthreads();                 // the next tile restages"),
+     "  __syncthreads();\n  " + _STAMP.format(code=3)
+     + "\n  __syncthreads();                 // the next tile restages"),
+    (re.escape("  for (int s = s_begin; s < s_end; ++s) {\n    int o, lt;"),
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) { g_t0 = clock64(); "
+     "g_ev = 0; }\n"
+     "  for (int s = s_begin; s < s_end; ++s) {\n    int o, lt;"),
+    (re.escape("      __threadfence();\n      cg::this_grid().sync();\n"),
+     "      __threadfence();\n      " + _STAMP.format(code=4)
+     + "\n      cg::this_grid().sync();\n      " + _STAMP.format(code=5)
+     + "\n"),
+], [])]
+WEIGHTNET_BF16 = [("shipped", [], [])]
 C2C_OLD = [
     ("shipped", [], []),
     ("no_staging", [(r"(__device__ void stage\(bf16\* dst, const bf16\* "
@@ -255,6 +318,9 @@ C2C_TRACE = [("trace", [
 SETS = {("person_planes", "old"): PERSON_OLD,
         ("person_planes", "new"): PERSON_NEW,
         ("centernet", "new"): CENTERNET,
+        ("centernet_bf16", "new"): CENTERNET_BF16,
+        ("centernet_bf16", "trace"): CENTERNET_BF16_TRACE,
+        ("weightnet_pool_bf16", "new"): WEIGHTNET_BF16,
         ("c2cnet", "old"): C2C_OLD,
         ("c2cnet", "new"): C2C_NEW,
         ("c2cnet", "trace"): C2C_TRACE,
@@ -403,6 +469,85 @@ def centernet_call(kind):
     return make
 
 
+def _centernet_bf16_inputs():
+    """(packed, bev, arena, out): frame 0's BEV map (`--repeat B`: B
+    copies, the eval batch's shape) with the smoke's weights, packed for
+    the bf16 route, and the launch's buffers."""
+    import torch
+
+    from fvp_torch.engine.packing import pack_centernet_bf16
+    from fvp_torch.ops.kernels import centernet as kcn
+    from fvp_torch.ops.kernels import sampler as ksamp
+
+    pred, hm = _smoke_predictor()
+    bev = ksamp.whole_sample_plain(hm, pred.rc, pred.cfg).amax(dim=3) \
+        .repeat(OPTIONS.get("repeat") or 1, 1, 1, 1).contiguous()
+    pc = pack_centernet_bf16(pred.model.pose_net.center_net)
+    plan = kcn.centernet_bf16_plan(*bev.shape)
+    arena = torch.empty(plan.arena_elems, dtype=torch.bfloat16,
+                        device="cuda")
+    out = torch.empty(3 * bev.shape[0] * bev.shape[1] * bev.shape[2],
+                      device="cuda")
+    return pc, bev, arena, out
+
+
+def centernet_bf16_call(kind):
+    """The bf16 CenterNet launch on frame 0's BEV map with the smoke's
+    weights, packed for the bf16 route."""
+    from fvp_torch.ops.kernels import centernet as kcn
+
+    pc, bev, arena, out = _centernet_bf16_inputs()
+
+    def make(lib):
+        def run():
+            _build._lib = lib
+            kcn.launch_bf16(pc, bev, arena, out)
+        return run
+    return make
+
+
+def centernet_bf16_trace(lib) -> list[dict]:
+    """The stamped build's events of block 0, one row per stage: cycles
+    from the stage's start (the launch, or past the last barrier) to its
+    first tile's staging, and each tile's K sums and epilogue, the wait
+    at the barrier and the barrier (`--set trace`)."""
+    import torch
+
+    from fvp_torch.ops.kernels import centernet as kcn
+
+    pc, bev, arena, out = _centernet_bf16_inputs()
+    _build._lib = lib
+    for _ in range(3):
+        kcn.launch_bf16(pc, bev, arena, out)
+    tr = torch.zeros(512, device="cuda")
+    copy = _old_entry(lib, "fvp_trace_copy", [ctypes.c_void_p] * 2)
+    copy(tr.data_ptr())
+    torch.cuda.synchronize()
+    v = tr.tolist()
+    events = [(int(v[2 * i]), v[2 * i + 1]) for i in range(len(v) // 2)
+              if int(v[2 * i]) in (1, 2, 3, 4, 5)]
+    rows, stage, start, tiles = [], 0, 0.0, []
+    prev = 0.0
+    for code, t in events:
+        if code == 1:
+            tiles.append({"staged": t - prev})
+        elif code == 2:
+            tiles[-1]["summed"] = t - prev
+        elif code == 3:
+            tiles[-1]["epilogue"] = t - prev
+        elif code == 4:
+            rows.append({"kernel": "centernet_bf16", "set": "trace",
+                         "stage": stage, "tiles": tiles,
+                         "at_barrier": t - start, "wait_from": prev - start})
+        elif code == 5:
+            rows[-1]["barrier"] = t - prev
+            stage, start, tiles = stage + 1, t, []
+        prev = t
+        if len(rows) == len(kcn.centernet_bf16_plan(1, 80, 80, 15).stages):
+            break
+    return rows
+
+
 def _old_entry(lib, fn, argtypes):
     getattr(lib, fn).argtypes = argtypes
     getattr(lib, fn).restype = ctypes.c_int
@@ -502,6 +647,30 @@ def weightnet_call(kind):
         return lambda: call(feats.data_ptr(), pw["w"].data_ptr(),
                             pw["scale"].data_ptr(), pw["shift"].data_ptr(),
                             out.data_ptr(), N, A, B, J, 32)
+    return make
+
+
+def weightnet_bf16_call(kind):
+    """The tree's bf16 pool on chip_smoke's K5 input (repeated
+    `--repeat` times), on its plan or on bands of `--rows` rows."""
+    import torch
+
+    from fvp_torch.engine.packing import pack_weightnet_bf16
+    from fvp_torch.ops.kernels import weightnet as kwn
+
+    pred, hm = _smoke_predictor()
+    feats = smoke_features(pred, hm).repeat(OPTIONS.get("repeat") or 1, 1, 1,
+                                            1).contiguous()
+    pw = pack_weightnet_bf16(pred.model.joint_net.weight_net)
+    N, A, B, J = feats.shape
+    out = torch.empty((N, J, 32), device="cuda")
+    plan = kwn.weightnet_bf16_plan(N, A, B, J, OPTIONS.get("rows"))
+
+    def make(lib):
+        def run():
+            _build._lib = lib
+            kwn.launch_bf16(feats, pw, out, plan)
+        return run
     return make
 
 
@@ -615,8 +784,10 @@ def c2cnet_flips(old, trials: int) -> list[dict]:
     return rows
 
 
-OPTIONS: dict = {}       # --rows of weightnet_pool's plan
+OPTIONS: dict = {}       # --rows of the pools' plans, --repeat
 CALLS = {"person_planes": person_call, "centernet": centernet_call,
+         "centernet_bf16": centernet_bf16_call,
+         "weightnet_pool_bf16": weightnet_bf16_call,
          "c2cnet": c2cnet_call, "weightnet_pool": weightnet_call,
          "soft_argmax": softargmax_call}
 
@@ -635,9 +806,11 @@ def main() -> int:
     ap.add_argument("--variants", help="comma-separated names (default: "
                     "all of the set)")
     ap.add_argument("--rows", type=int, help="weightnet_pool's band rows")
+    ap.add_argument("--repeat", type=int, help="weightnet_pool_bf16's "
+                    "input maps, or centernet_bf16's BEV, repeated")
     ap.add_argument("--trials", type=int, default=25, help="flips' inputs")
     args = ap.parse_args()
-    OPTIONS.update(rows=args.rows)
+    OPTIONS.update(rows=args.rows, repeat=args.repeat)
     if not torch.cuda.is_available():
         print("kernel_parts: no CUDA device", file=sys.stderr)
         return 2
@@ -646,7 +819,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card, flush=True)
-    stem = {"weightnet_pool": "weightnet",
+    stem = {"weightnet_pool": "weightnet", "weightnet_pool_bf16": "weightnet",
             "soft_argmax": "softargmax"}.get(args.kernel, args.kernel)
     source = Path(args.source or _build.CSRC / f"{stem}.cu")
     variants = SETS[(args.kernel, args.set)]
@@ -658,8 +831,12 @@ def main() -> int:
     with torch.inference_mode():
         if args.set in ("trace", "flips"):
             lib = load(next(iter(libs.values())))
-            rows = (c2cnet_trace(lib) if args.set == "trace"
-                    else c2cnet_flips(lib, args.trials))
+            if args.set == "flips":
+                rows = c2cnet_flips(lib, args.trials)
+            elif args.kernel == "centernet_bf16":
+                rows = centernet_bf16_trace(lib)
+            else:
+                rows = c2cnet_trace(lib)
             for r in rows:
                 r.update(source=str(source), card=card)
                 print(json.dumps(r), flush=True)
@@ -669,7 +846,8 @@ def main() -> int:
                 ms = time_ms(make(load(path)))
                 rows.append({"kernel": args.kernel, "set": args.set,
                              "source": str(source), "variant": name,
-                             "ms": ms, "rows": args.rows, "card": card})
+                             "ms": ms, "rows": args.rows,
+                             "repeat": args.repeat, "card": card})
                 print(json.dumps(rows[-1]), flush=True)
     _build._lib = None
     out = Path("chiprun_out")

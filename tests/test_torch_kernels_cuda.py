@@ -356,18 +356,21 @@ def test_weightnet_pool_kernel(dev, shape, rows):
 
 
 @pytest.mark.parametrize("shape", [(1, 80, 80, 15), (8, 80, 80, 15),
-                                   (1, 40, 24, 17), (2, 16, 16, 15)])
+                                   (1, 40, 24, 17), (2, 16, 16, 15),
+                                   (1, 16, 16, 64)])
 def test_centernet_bf16_route(dev, shape):
-    """CenterNet's bf16 route (24 convs and 2 pools on the bf16 conv
-    kernels) at B = 1 and the eval batch's 8 maps, a 10 x 6 deepest level
-    and a small map: bf16 flips carry on through the net as in P2PNet, so
-    the maps are held at 1e-2 of their scale."""
+    """CenterNet's bf16 route (one launch of the persistent bf16 kernel) at
+    B = 1 and the eval batch's 8 maps, a 10 x 6 deepest level, a small
+    map and 64 joints (the front's channels in 4 chunks): bf16 flips carry on through the net as in P2PNet, so the maps are
+    held at 1e-2 of their scale; two calls give the same bits (no
+    atomics); the layer-by-layer route is not launched."""
     J = shape[-1]
     packed = pack_model(_model(J, dev), "bfloat16")["center_net_bf16"]
     bev = torch.rand(shape, device=dev)
-    before = kcn.bf16_launches()
+    before, layered = kcn.bf16_launches(), kcn.layered_bf16_launches()
     got = kcn.centernet_bf16(packed, bev)
-    assert kcn.bf16_launches() == before + 26
+    assert kcn.bf16_launches() == before + 1
+    assert kcn.layered_bf16_launches() == layered
     ref = kcn.centernet_bf16_plain(packed, bev)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == torch.float32
@@ -375,28 +378,76 @@ def test_centernet_bf16_route(dev, shape):
         scale = float(r.abs().max())
         assert scale > 0
         torch.testing.assert_close(g, r, rtol=0, atol=1e-2 * scale)
+    again = kcn.centernet_bf16(packed, bev)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
-@pytest.mark.parametrize("shape", [(6, 16, 16, 15), (30, 64, 64, 15),
-                                   (240, 64, 64, 15), (2, 40, 22, 17),
-                                   (3, 10, 6, 2)])
-def test_weightnet_pool_bf16_route(dev, shape):
-    """WeightNet's bf16 pool on mma.sync against its plain version: the 9
-    products are exact in float32, their sum's order differs, so a pooled
-    value may round to the neighbouring bf16 value: one bf16 ulp of the
-    scale at most in the mean. (2, 40, 22, 17): a ragged last patch of
-    columns; two calls give the same bits."""
-    packed = pack_model(_model(shape[-1], dev), "bfloat16")["weight_net_bf16"]
+@pytest.mark.parametrize("shape", [(1, 40, 24, 15), (8, 80, 80, 15)])
+def test_centernet_bf16_stages_alone(dev, shape):
+    """Each stage of the bf16 plan launched alone (a plain launch, no grid
+    barrier, a block a tile) on the arena of a full run gives the full
+    run's bits; at B = 8 the full run's blocks take several tiles of an op
+    each and keep their staged weights from one to the next."""
+    packed = pack_model(_model(15, dev), "bfloat16")["center_net_bf16"]
+    bev = torch.rand(shape, device=dev)
+    plan = kcn.centernet_bf16_plan(*bev.shape)
+    arena = torch.empty(plan.arena_elems, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(3 * shape[0] * shape[1] * shape[2], device=dev)
+    kcn.launch_bf16(packed, bev, arena, out)
+    want = out.clone()
+    out.zero_()
+    for s in range(len(plan.stages)):
+        kcn.launch_bf16(packed, bev, arena, out, s, s + 1)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("shape,rows,joints", [
+    ((6, 16, 16, 15), None, None), ((30, 64, 64, 15), None, None),
+    ((240, 64, 64, 15), None, None), ((2, 40, 22, 17), None, None),
+    ((3, 10, 6, 2), None, None), ((30, 64, 64, 15), 16, 4),
+    ((1, 4, 512, 64), None, None), ((2, 8, 6, 1), None, None)])
+def test_weightnet_pool_bf16_route(dev, shape, rows, joints):
+    """WeightNet's banded bf16 pool on mma.sync against its plain version:
+    the 9 products are exact in float32, their sum's order differs, so a
+    pooled value may round to the neighbouring bf16 value: one bf16 ulp of
+    the scale at most in the mean. (2, 40, 22, 17): a ragged last patch of
+    columns; (30, 64, 64, 15) in chunks of 4 joints and (1, 4, 512, 64),
+    whose band of all joints does not fit (two chunks of 32): joints
+    chunked; one joint; two calls give the same bits."""
+    # the pool's weights do not depend on J: a 2-joint model's for J = 1
+    packed = pack_model(_model(max(shape[-1], 2), dev),
+                        "bfloat16")["weight_net_bf16"]
     planes = torch.as_tensor(np.random.RandomState(0).randn(*shape)
                              .astype(np.float32), device=dev)
+
+    def call():
+        if rows is None:
+            return kwn.weightnet_pool_bf16(planes, packed)
+        out = torch.empty((shape[0], shape[3], 32), device=dev)
+        kwn.launch_bf16(planes, packed, out,
+                        kwn.weightnet_bf16_plan(*shape, rows, joints))
+        return out
+
     before = kwn.WEIGHTNET_POOL_BF16.launches
-    got = kwn.weightnet_pool_bf16(planes, packed)
+    got = call()
     assert kwn.WEIGHTNET_POOL_BF16.launches == before + 1
     ref = kwn.weightnet_pool_bf16_plain(planes, packed)
     scale = float(ref.abs().max())
     assert scale > 0 and got.shape == ref.shape
     torch.testing.assert_close(got, ref, rtol=0, atol=2.0 ** -8 * scale)
-    assert torch.equal(kwn.weightnet_pool_bf16(planes, packed), got)
+    assert torch.equal(call(), got)
+
+
+def test_weightnet_pool_kernel_one_joint(dev):
+    """A chunk of one joint (J = 1): the slab's division by the chunk's
+    joints is a plain copy there (its magic number would wrap to 0)."""
+    shape = (2, 8, 6, 1)
+    packed = pack_model(_model(15, dev))["weight_net"]
+    planes = torch.as_tensor(np.random.RandomState(0).randn(*shape)
+                             .astype(np.float32), device=dev)
+    got = kwn.weightnet_pool(planes, packed)
+    ref = kwn.weightnet_pool_plain(planes, packed)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def _assert_within_one_bf16_ulp(got, ref):
@@ -500,8 +551,9 @@ _FUSE_ONLY = ("p2pnet.conv.wgmma", "p2pnet.conv.wmma", "p2pnet.pool",
               "c2cnet")
 _STAGE = ("bottleneck_stage.wgmma", "bottleneck_stage.wmma")
 _SHARDED = ("whole_sample.sum",)
-_BF16_ROUTES = ("centernet_bf16.conv.wgmma", "centernet_bf16.conv.wmma",
-                "centernet_bf16.pool", "weightnet_pool_bf16")
+_BF16_ROUTES = ("centernet_bf16", "centernet_bf16.conv.wgmma",
+                "centernet_bf16.conv.wmma", "centernet_bf16.pool",
+                "weightnet_pool_bf16")
 _OFF_HEATMAP_PATH = ("stem", "deconv_stage") + _STAGE + _FUSE_ONLY \
     + _SHARDED + _BF16_ROUTES
 
