@@ -99,7 +99,10 @@ non-zero:
    holds K1 and K2 against their plain versions on the training batch,
    the first step against the CPU (losses, gradients, BatchNorm
    statistics), and takes 2 image-source steps at batch 2 through the
-   frozen float32 ResNet-50 (stem, deconv head, K1, K2 a step); then the
+   frozen float32 ResNet-50 (stem, deconv head, K1, K2 a step), and the
+   same 2 at compute_dtype='bfloat16' from the same weights and images
+   (the bottleneck stage's 10 launches on layer1 besides; the first
+   step's losses within TRAIN_BF16_LOSS_RTOL of float32's); then the
    same steps at compute_dtype='bfloat16' (the nets in bf16 as flax builds
    them) from the same weights: launches, median step and peak memory
    beside float32's, a profile by kind, and the first step's losses
@@ -172,7 +175,27 @@ non-zero:
     after both; tests/test_torch_train_lockstep.py's tolerances), the
     step time and peak memory a rank; (c) and (d) start from the smoke's
     seeded weights;
-13. prints one JSON line of the kernels, then the result line.
+13. drives Shelf and Campus at full width (configs/shelf/jln64.yaml: 5
+    views, 17 joints, 200x152 heatmaps, an 8000 mm space, K = 10;
+    configs/campus/jln64.yaml: 3 views, 200x160, 12000 mm, K = 5), each
+    from a tree written by fvp_torch/tools/fixtures.py (no real data
+    ships): (a) the pose library built by `python -m
+    fvp_torch.tools.extract_training_poses --coco17` in a subprocess; (b)
+    SC_TRAIN_WARMUP + SC_TRAIN_STEPS train steps at the batch of 8 on the
+    synthetic factory fed by that library (rendered by the device splat),
+    each launching K1 and K2 once and nothing else, the first held
+    against the CPU as in phase 9; (c) run_validation over SC_TEST_FRAMES
+    test frames at batch 8 (the 'pred' source: the native host renderer,
+    then the card) with the counts set to 0 just before, at a gate chosen
+    from the card's confidences (replacing MIN_SCORE 0.1), against the
+    same call on the CPU (the PCP dict equal, identical masks, within 5e-2
+    mm), K1-K5 on batch 0 against their plain versions; (d) the same eval
+    with fuse_p2p (P2PNet and C2CNet as kernels at B = 8) against (c)
+    (within FUSE_POSE_TOL_MM) and the two kernels against their plain
+    versions on batch 0's planes and columns; (e) one heatmap frame
+    through Predictor, FRAMES times with the counts set to 0 just before,
+    frame 0 against the CPU;
+14. prints one JSON line of the kernels, then the result line.
 
 float32 outside the bf16 kernels and the bf16 path: TF32 is switched off
 for cuDNN convs and matmuls, so that the card's plain path and the float32
@@ -874,12 +897,15 @@ def main() -> int:
     spatial_launches, spatial_res = spatial_phase(K, state, smi, pred,
                                                   frames, train_res)
 
+    # 13. Shelf and Campus at full width, from their synthesised trees
+    sc_launches, sc_res = shelf_campus_phase(K, smi, rows)
+
     kernels = []
     paths = {"heatmap_path": launches, "image_path": img_launches,
              "fuse_p2p_path": fuse_launches,
              "bf16_image_path": bf16_launches, "eval_path": eval_launches,
              "train_path": train_launches, "service_path": service_launches,
-             **sharded_launches, **spatial_launches}
+             **sharded_launches, **spatial_launches, **sc_launches}
     for name in ("stem", "deconv_stage", "whole_sample", "person_planes",
                  "centernet", "soft_argmax", "weightnet_pool", "p2pnet",
                  "c2cnet", "bottleneck_stage", "centernet_bf16",
@@ -909,6 +935,8 @@ def main() -> int:
                     "train_peak_memory_gb": train_res["peak_gb"],
                     "train_losses": train_res["losses"],
                     "train_image_step_ms": train_res["image_step_ms"],
+                    "train_image_bf16_step_ms":
+                        train_res["image_bf16_step_ms"],
                     "train_bf16_step_ms": train_res["bf16_step_ms"],
                     "train_bf16_step_ms_median":
                         train_res["bf16_step_ms_median"],
@@ -926,7 +954,8 @@ def main() -> int:
                     "service_parts_ms": service_res["parts_ms"],
                     "sharded": sharded_res,
                     "spatial": spatial_res,
-                    "card": smi}))
+                    "shelf_campus": sc_res,
+                    "card": smi}, default=_plain))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2206,11 +2235,13 @@ def tf32_shift(e, step, x, rc, hm, ref, smi) -> float:
     return shift
 
 
-def batch_kernels(cfg, e, rc, hm, rows) -> None:
-    """K1-K5 on batch 0's tensors, B = 8 frames and P = 80 people (the
+def batch_kernels(cfg, e, rc, hm, rows, key="eval_batch",
+                  what="eval") -> None:
+    """K1-K5 on batch 0's tensors, B = 8 frames and P = B * K people (the
     kept ones sampled by person_planes): each against its plain version on
     the same inputs with phase 3's tolerances, and timed alone (CUDA
-    events, as phase 3) beside its B = 1 time there."""
+    events, as phase 3) beside its B = 1 time there; kept in each row
+    under `key`_ms, `key`_max_abs_err and `key`_tol."""
     import torch
     from fvp_torch.ops.kernels import centernet as kcn
     from fvp_torch.ops.kernels import sampler as ksamp
@@ -2252,8 +2283,23 @@ def batch_kernels(cfg, e, rc, hm, rows) -> None:
         feats = feats.contiguous()
         c_k, p_k = ksa.soft_argmax(fl, grid, cfg.beta)
         c_p, p_p = ksa.soft_argmax_plain(fl, grid, cfg.beta)
-        errs["soft_argmax"] = (float(max((c_k - c_p).abs().max(),
-                                         (p_k - p_p).abs().max())), 1e-2)
+        # the coordinates are sums of 4096 float32 terms of the grid's
+        # magnitude, which is the space centre's (~1800 mm at Panoptic's,
+        # ~5500 at Campus's): the kernel is held at 1e-2 mm of the float64
+        # soft-argmax of the same inputs, and at 1e-2 mm or 80 float32
+        # ulps of the grid's largest coordinate, whichever is more, of its
+        # plain version (whose own float32 sums part from float64 by up to
+        # 1.5e-2 mm on Campus's grid); the confidences at 1e-2
+        gmax = float(grid.abs().max())
+        errs["soft_argmax"] = (float((c_k - c_p).abs().max()),
+                               max(1e-2, 80 * float(np.spacing(
+                                   np.float32(gmax)))))
+        errs["soft_argmax confs"] = (float((p_k - p_p).abs().max()), 1e-2)
+        prob64 = torch.softmax(cfg.beta * fl.double(), dim=2)
+        c64 = torch.einsum("spnj,snc->spjc", prob64, grid.double())
+        d64 = (float((c_k.double() - c64).abs().max()),
+               float((c_p.double() - c64).abs().max()))
+        errs["soft_argmax float64"] = (d64[0], 1e-2)
         w_k = kwn.weightnet_pool(feats, pw)
         w_p = kwn.weightnet_pool_plain(feats, pw)
         errs["weightnet_pool"] = (float((w_k - w_p).abs().max()),
@@ -2268,18 +2314,27 @@ def batch_kernels(cfg, e, rc, hm, rows) -> None:
                                                            cfg.beta)),
             "weightnet_pool": time_ms(lambda: kwn.weightnet_pool(feats, pw)),
         }
-    log(f"eval kernels at B = {B}, P = {B * K} ({int(mask.sum())} people "
+    log(f"{what} kernels at B = {B}, P = {B * K} ({int(mask.sum())} people "
         "kept; person_planes samples only those), each against its plain "
         "version on the same inputs, and timed against B = 1 (phase 3; "
         "person_planes there: 10 full cubes):")
     for name, ms in times.items():
         err, tol = errs[name]
-        rows[name].update(eval_batch_ms=ms, eval_batch_max_abs_err=err,
-                          eval_batch_tol=tol)
+        rows[name].update({f"{key}_ms": ms, f"{key}_max_abs_err": err,
+                           f"{key}_tol": tol})
         log(f"  {name:15s} max_abs_err {err:.3e} (tol {tol:.1e}); "
             f"{ms:8.4f} ms at B = {B}, {rows[name]['ms']:8.4f} ms at B = 1 "
             f"({ms / rows[name]['ms']:.2f}x)")
-        held(name, err, tol, f" at B = {B}")
+        held(name, err, tol, f" at B = {B} ({what})")
+    err, tol = errs["soft_argmax confs"]
+    log(f"  soft_argmax confidences max_abs_err {err:.3e} (tol {tol:.1e}); "
+        f"coordinates (grid up to {gmax:.1f} mm) from the float64 "
+        f"soft-argmax: kernel {d64[0]:.3e} (tol 1.0e-02), plain version "
+        f"{d64[1]:.3e} mm")
+    held("soft_argmax confidences", err, tol, f" at B = {B} ({what})")
+    held("soft_argmax", *errs["soft_argmax float64"],
+         f" at B = {B} ({what}), against the float64 soft-argmax")
+    rows["soft_argmax"][f"{key}_float64_err"] = d64[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2289,6 +2344,9 @@ def batch_kernels(cfg, e, rc, hm, rows) -> None:
 TRAIN_PATH = {"whole_sample": 1, "person_planes": 1}
 TRAIN_IMAGE_PATH = {"stem": 1, "deconv_stage": 3, "whole_sample": 1,
                     "person_planes": 1}
+# compute_dtype='bfloat16': the backbone serves in bf16, layer1 on the
+# bottleneck stage kernel (10 conv_wgmma launches a step)
+TRAIN_IMAGE_BF16_PATH = {**TRAIN_IMAGE_PATH, "bottleneck_stage": 10}
 
 
 def step_launches(K, before, per_step, what) -> dict:
@@ -2438,14 +2496,18 @@ def train_phase(K, smi):
     held("person_planes", err_pp, 1e-4, " on the training batch")
 
     train_card_vs_cpu(cfg, init_state, batches[0][1], ds)
-    image_ms = train_image_steps(K, cfg, init_state, batches[0][1],
-                                 ds.rigs["synthetic"], smi)
+    image_ms, image_first = train_image_steps(
+        K, cfg, init_state, batches[0][1], ds.rigs["synthetic"], smi)
+    image_bf16_ms, _ = train_image_steps(
+        K, cfg, init_state, batches[0][1], ds.rigs["synthetic"], smi,
+        "bfloat16", image_first)
     bf16 = train_bf16_steps(K, cfg, init_state, inputs, rc, losses[0],
                             (med, peak), smi)
     native_ms = native_render(cfg)
     return counts, {"step_ms": step_ms, "step_ms_median": med,
                     "peak_gb": peak, "losses": losses,
-                    "image_step_ms": image_ms, **bf16,
+                    "image_step_ms": image_ms,
+                    "image_bf16_step_ms": image_bf16_ms, **bf16,
                     "native_ms_per_scene": native_ms,
                     # for phase 12: the first two batches
                     "batches": [b for _, b in batches[:2]], "cfg": cfg,
@@ -2492,18 +2554,9 @@ def train_bf16_steps(K, cfg, init_state, inputs, rc, first32, ref32,
         f"{max(timed):.3f}), peak memory {peak:.3f} GB; float32 in this "
         f"run {ref32[0]:.3f} ms, {ref32[1]:.3f} GB; launches {counts}")
     log(f"train bf16 step ms: {', '.join(f'{t:.2f}' for t in step_ms)}")
-    rel = {key: abs(losses[0][key] - v) / abs(v)
-           for key, v in first32.items() if v != 0}
-    log("train bf16 first step against float32 (same weights, same batch): "
-        + ", ".join(f"{key} {losses[0][key]:.6g} vs {first32[key]:.6g} "
-                    f"({rel.get(key, 0.0):.3e})" for key in first32)
-        + f"; tol {TRAIN_BF16_LOSS_RTOL:.0e} relative")
+    first_losses_close("train bf16", "same batch", losses[0], first32)
     profile_frames(lambda a: tr.train_step(a[0], rc, *a[1:]), [inputs[0]],
                    n=2, unit="step", groups=TRAIN_PROFILE_GROUPS)
-    if any((first32[key] == 0) != (losses[0][key] == 0) for key in first32) \
-            or max(rel.values()) > TRAIN_BF16_LOSS_RTOL:
-        raise AssertionError("the bf16 first step's losses differ from "
-                             "float32's beyond the tolerance")
     return {"bf16_step_ms": step_ms, "bf16_step_ms_median": med,
             "bf16_peak_gb": peak, "bf16_losses": losses}
 
@@ -2633,12 +2686,18 @@ def train_card_vs_cpu(cfg, init_state, batch, ds) -> None:
                              "card and the CPU")
 
 
-def train_image_steps(K, cfg, init_state, batch, rig, smi) -> list:
+def train_image_steps(K, cfg, init_state, batch, rig, smi,
+                      dtype="float32", first32=None) -> tuple[list, dict]:
     """TRAIN_IMAGE_STEPS image-source steps at batch TRAIN_IMAGE_BATCH
-    through the frozen float32 ResNet-50 (seeded) at 960x512: each launches
-    the stem once, the deconv head's three stages, K1 and K2, and nothing
-    else; the losses finite; the backbone unchanged. Returns the steps'
-    host-clock ms."""
+    through the frozen ResNet-50 (seeded) at 960x512, at compute_dtype
+    `dtype`: each launches the stem once, the deconv head's three stages,
+    K1 and K2 (float32: TRAIN_IMAGE_PATH), and under bfloat16 also the
+    bottleneck stage's ten conv_wgmma launches on layer1
+    (TRAIN_IMAGE_BF16_PATH), and nothing else; the losses finite; the
+    backbone unchanged; under bfloat16 the first step's losses within
+    TRAIN_BF16_LOSS_RTOL of the float32 first step's (`first32`) on the
+    same weights and images. Returns the steps' host-clock ms and the
+    first step's losses."""
     import torch
     from fvp_torch.engine.train import Trainer
     from fvp_torch.geometry.grids import build_rig_constants
@@ -2647,7 +2706,9 @@ def train_image_steps(K, cfg, init_state, batch, rig, smi) -> list:
 
     dev = torch.device("cuda")
     b = TRAIN_IMAGE_BATCH
-    cfg_img = cfg.replace(train_heatmap_src="image")
+    cfg_img = cfg.replace(train_heatmap_src="image", compute_dtype=dtype)
+    path = TRAIN_IMAGE_BF16_PATH if dtype == "bfloat16" else \
+        TRAIN_IMAGE_PATH
     backbone = PoseResNet(cfg.num_joints, cfg.resnet_layers)
     backbone.load_state_dict(seeded_state_dict(backbone, seed=0))
     model = FasterVoxelPose(cfg_img)
@@ -2662,27 +2723,50 @@ def train_image_steps(K, cfg, init_state, batch, rig, smi) -> list:
     rc = build_rig_constants(cfg_img, rig).to(dev)
     K.reset_launches()
     counts = launch_counts(K)
-    ms = []
+    ms, losses = [], []
     for i in range(TRAIN_IMAGE_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         ls = tr.train_step(images, rc, targets, meta)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
-        counts = step_launches(K, counts, TRAIN_IMAGE_PATH,
-                               f"image train step {i}")
+        counts = step_launches(K, counts, path,
+                               f"{dtype} image train step {i}")
         ls = {key: float(v) for key, v in ls.items()}
+        losses.append(ls)
         if not all(np.isfinite(v) for v in ls.values()):
             raise AssertionError(f"image train step {i}: losses {ls}")
+    if dtype == "bfloat16":
+        expect_conv_routes(K, "bottleneck_stage", TRAIN_IMAGE_STEPS,
+                           STAGE_ROUTES)
     if any(not torch.equal(a, p) for a, p in zip(before,
                                                   backbone.parameters())):
         raise AssertionError("the frozen backbone moved")
     log(f"train image source on {smi}: {TRAIN_IMAGE_STEPS} steps at batch "
-        f"{b} through the frozen float32 ResNet-50 at "
-        f"{cfg_img.image_size}: {', '.join(f'{t:.2f}' for t in ms)} ms "
-        f"(the first with its warm-up); launches {counts}; losses finite, "
+        f"{b} through the frozen ResNet-50 at {cfg_img.image_size}, "
+        f"{dtype}: {', '.join(f'{t:.2f}' for t in ms)} ms (the first with "
+        f"its warm-up); launches {counts}, each step {path}; losses finite, "
         "backbone unchanged")
-    return ms
+    if first32 is not None:
+        first_losses_close(f"train image source {dtype}", "same images",
+                           losses[0], first32)
+    return ms, losses[0]
+
+
+def first_losses_close(what, same, got, first32) -> None:
+    """A bf16 first step's losses `got` against the float32 first step's
+    `first32` from the same weights: each relative within
+    TRAIN_BF16_LOSS_RTOL, zero where float32's is zero."""
+    rel = {key: abs(got[key] - v) / abs(v)
+           for key, v in first32.items() if v != 0}
+    log(f"{what} first step against float32 (same weights, {same}): "
+        + ", ".join(f"{key} {got[key]:.6g} vs {first32[key]:.6g} "
+                    f"({rel.get(key, 0.0):.3e})" for key in first32)
+        + f"; tol {TRAIN_BF16_LOSS_RTOL:.0e} relative")
+    if any((first32[key] == 0) != (got[key] == 0) for key in first32) \
+            or max(rel.values()) > TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError(f"{what}: the first step's losses differ "
+                             "from float32's beyond the tolerance")
 
 
 def numpy_render(ds, rec: int, x, b: int, render) -> np.ndarray:
@@ -3962,6 +4046,631 @@ def spatial_rank_train(data, inp) -> dict:
     return {"launches": launches, "sum_launches": sums, "ms": ms,
             "losses": losses, "peak_gb": peak, "staged_mb": staged,
             "held": heldd, "state": state, "stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# 13. Shelf and Campus at full width
+# ---------------------------------------------------------------------------
+
+# The two evaluation configurations of the paper, each on a tree written by
+# fvp_torch/tools/fixtures.py (no real data ships): the name, its config,
+# and its data directory beside the shared pose library.
+SHELF_CAMPUS = (("shelf", "configs/shelf/jln64.yaml", "Shelf"),
+                ("campus", "configs/campus/jln64.yaml", "Campus"))
+# the depth each is cut to: test frames (of the 301 and 222 the datasets
+# pin), training scenes (of SYNTHETIC.NUM_DATA's 10000) and train steps at
+# the config's batch of 8
+SC_TEST_FRAMES = 16
+SC_TRAIN_SCENES = 40
+SC_TRAIN_WARMUP = 2
+SC_TRAIN_STEPS = 3
+# the Panoptic training sequences the pose library is extracted from
+SC_POSE_SEQS, SC_POSE_FRAMES, SC_POSE_PEOPLE = 2, 48, 3
+# C2CNet at B = 8 against its plain version (cuDNN's bf16 convs, float32
+# sums in another order): over the eval batch's 40-80 columns an activation
+# rounded to the other bf16 neighbour somewhere carries on through the 19
+# phases (1.29 and 1.58 x NET_RTOL of the scale on Shelf's and Campus's
+# batch 0 in this phase's first runs, NVIDIA H100 80GB HBM3, 700.00 W;
+# 2.9e-3 .. 9.9e-3 over seeds on the CPU, where the reference lies as far
+# from the plain version as from the kernel's emulation:
+# tests/test_torch_c2cnet_plan.py). The kernel is also held bit for bit
+# against its emulation (ops/kernels/c2cnet.py::emulate).
+C2CNET_BATCH_RTOL = 3 * NET_RTOL
+# The fuse_p2p eval against the float32 eval: the bf16 C2CNet may pick
+# another height than the float32 module where two of its scores lie
+# close (Shelf: 19 of 159 people, each also picked by the plain version,
+# cuDNN's bf16 convs; its scores up to 3.8e-2 of their scale from the
+# float32 module's, for kernel and plain version alike). At most this
+# many people may take a height the plain version does not pick (a
+# near-tie between the two orders of bf16 sums, as BF16_MAX_TRADED).
+FUSE_MAX_KERNEL_ONLY_FLIPS = 1
+
+
+def sc_tree(tmp) -> str:
+    """The synthesised trees under `tmp` (Panoptic training sequences, a
+    Shelf and a Campus tree), and the COCO-17 pose library both configs
+    read (SYNTHETIC.POSE_FILE '../panoptic_training_pose.pkl'), built by
+    the port's tool in a subprocess as a user runs it. Returns the tool's
+    output line."""
+    import os
+
+    from fvp_torch.config import load_config
+    from fvp_torch.data.panoptic import TRAIN_LIST
+    from fvp_torch.tools import fixtures
+
+    for i, seq in enumerate(TRAIN_LIST[:SC_POSE_SEQS]):
+        fixtures.write_panoptic_sequence(
+            os.path.join(tmp, "Panoptic"), seq, n_frames=SC_POSE_FRAMES,
+            n_people=SC_POSE_PEOPLE, seed=40 + i)
+    for name, path, sub in SHELF_CAMPUS:
+        cfg = load_config(path)
+        fixtures.write_shelf_tree(os.path.join(tmp, sub), name,
+                                  cfg.num_views, cfg.space_center,
+                                  cfg.ori_image_size)
+    out = os.path.join(tmp, "panoptic_training_pose.pkl")
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "fvp_torch.tools.extract_training_poses",
+         "--data_dir", os.path.join(tmp, "Panoptic"), "--out", out,
+         "--coco17"], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if run.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"extract_training_poses failed "
+                             f"({run.returncode}): {run.stderr[-2000:]}")
+    return (f"{run.stdout.strip()} (python -m "
+            f"fvp_torch.tools.extract_training_poses --coco17, a "
+            f"subprocess, {time.perf_counter() - t:.1f} s)")
+
+
+def shelf_campus_phase(K, smi, rows):
+    """Phase 13: Shelf and Campus at full width on the card, each from its
+    synthesised tree: (a) the trees and the pose library; (b) train steps
+    at the config's batch of 8 on the synthetic factory fed by that
+    library; (c) run_validation over the cut test split (the 'pred'
+    source: the native host renderer, then the card) against the same call
+    on the CPU, and K1-K5 on batch 0 against their plain versions; (d) the
+    same eval with fuse_p2p, P2PNet and C2CNet as kernels at B = 8, against
+    (c) and against their plain versions; (e) one heatmap frame through
+    Predictor against the CPU. Returns (launches by path, numbers)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from fvp_torch.config import load_config
+
+    tmp = tempfile.TemporaryDirectory(prefix="fvp_shelf_campus_")
+    t0 = time.perf_counter()
+    lib_line = sc_tree(tmp.name)
+    log(f"shelf/campus phase: trees written and pose library built in "
+        f"{time.perf_counter() - t0:.1f} s: {lib_line}")
+    launches, res = {}, {}
+    for name, path, sub in SHELF_CAMPUS:
+        base = load_config(path, data_dir=os.path.join(tmp.name, sub))
+        t = time.perf_counter()
+        paths, out = sc_config(K, smi, rows, name, path, base)
+        out["phase_s"] = time.perf_counter() - t
+        launches.update({f"{name}_{k}": v for k, v in paths.items()})
+        res[name] = out
+        log(f"{name}: phase 13 took {out['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return launches, res
+
+
+def sc_config(K, smi, rows, name, path, base):
+    """Phase 13 for one configuration, `base` its config on its tree (see
+    shelf_campus_phase)."""
+    import torch
+
+    from fvp_torch.data.loader import build_samples, collate
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.engine.serve import Engine, Predictor
+    from fvp_torch.engine.validate import batch_input, eval_batches, eval_rng
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+
+    dev = torch.device("cuda")
+    cfg = base.replace(synthetic_num_data=SC_TRAIN_SCENES)
+    paths, out = {}, {}
+    log(f"{name}: {path}, {cfg.num_views} views of {cfg.heatmap_size} "
+        f"heatmaps ({cfg.ori_image_size} images), {cfg.num_joints} joints, "
+        f"space {cfg.space_size} mm at {cfg.space_center} in "
+        f"{cfg.voxels_per_axis} voxels, K = {cfg.max_people} in "
+        f"{cfg.ind_voxels_per_axis} cubes, sigma {cfg.sigma}, "
+        f"{cfg.compute_dtype}")
+
+    # (b) training on the synthetic factory fed by the pose library
+    paths["train_path"], out["train"] = sc_train(K, smi, name, cfg,
+                                                 base.synthetic_num_data)
+
+    # (c) the eval over the cut test split, seeded weights
+    ds = build_dataset(cfg.test_dataset, cfg, is_train=False)
+    ds.records = ds.records[:SC_TEST_FRAMES]
+    ds.frame_range = ds.frame_range[:SC_TEST_FRAMES]
+    seq = ds.records[0]["seq"]
+    rig = ds.rigs[seq]
+    state = random_state_dict(FasterVoxelPose(cfg), seed=0)
+    specs = list(eval_batches(ds, cfg.test_batch_size))
+    rng = eval_rng(cfg)
+    xs = [batch_input(collate(build_samples(ds, idx, rng=rng)), dev)
+          for _, idx, _ in specs]
+    log(f"{name} eval: {len(ds)} test frames (frames "
+        f"{ds.frame_range[0]}..{ds.frame_range[-1]} of the "
+        f"{type(ds).__name__}), batches {[int(v) for _, _, v in specs]} of "
+        f"{cfg.test_batch_size}, heatmaps {tuple(xs[0].shape)} from the "
+        f"offline 2D predictions (source '{cfg.test_heatmap_src}', the "
+        f"native host renderer), seeded random weights")
+
+    def engine(c, device):
+        model = FasterVoxelPose(c)
+        model.load_state_dict(state)
+        return Engine(c, model, device)
+
+    # the gate, in the widest gap of the card's confidences over every
+    # batch, of the float32 path and the fuse_p2p path, that leaves at
+    # least two of frame 0's people above it on both
+    det = {}
+    for fuse in (False, True):
+        e = engine(cfg.replace(fuse_p2p=fuse), dev)
+        rc = e.rig_constants(rig)
+        with torch.inference_mode():
+            det[fuse] = [{k: v.cpu() for k, v in
+                          e.model.detect(x, rc, e.packed).items()
+                          if k in ("proposals", "hm1d", "columns")}
+                         for x in xs]
+    conf = {f: torch.cat([d["proposals"][..., 4] for d in det[f]])
+            for f in det}
+    cfg = cfg.replace(min_score=pick_gate(conf, name))
+
+    paths["eval_path"], out["eval"], poses = sc_eval(
+        K, smi, rows, name, cfg, state, ds, specs, xs, rig, det[False])
+    paths["fuse_eval_path"], out["fuse_eval"] = sc_fuse_eval(
+        K, smi, rows, name, cfg, state, ds, specs, xs, rig, det, poses)
+
+    # (e) one heatmap frame through Predictor, card against CPU
+    pred = Predictor.from_state_dict(cfg, state, rig, device=dev)
+    frame = xs[0][:1]
+    gate_clear(pred, frame.cpu().numpy(), f"{name} frame 0")
+    outs, lat, counts = drive(pred, [frame], K)
+    log(f"{name} frame path: {FRAMES} frames, launches {counts}")
+    expect_launches(counts, HEATMAP_PATH, f"{name} frame path")
+    expect_per_frame(counts, {k: 1 for k in HEATMAP_PATH},
+                     f"{name} frame path")
+    log_latency(f"{name} heatmap frame latency on {smi}", lat)
+    cpu = Predictor.from_state_dict(cfg, state, rig, device="cpu")
+    check_poses(outs[0], cpu, frame, f"{name} frame ")
+    paths["frame_path"] = counts
+    out["frame_ms"] = lat
+    out["min_score"] = cfg.min_score
+    return paths, out
+
+
+def pick_gate(conf, name) -> float:
+    """The midpoint of the widest gap between the confidences `conf`
+    (fuse_p2p off and on: (frames, K) each) that leaves at least two of
+    frame 0's people above it on both paths. The seeded nets' confidences
+    lie ~1e-5 apart, on no trained scale and closer than the bf16 C2CNet
+    moves one, so a person's two confidences may lie on the two sides of
+    any such gap: fuse_against_float32 compares the people both paths
+    keep."""
+    import torch
+
+    c = np.sort(torch.cat([v.ravel() for v in conf.values()]).numpy())
+    c32, cf = (v.numpy() for v in conf.values())
+    fits = [i for i in range(len(c) - 1)
+            if c[i + 1] - c[i] > 2e-4
+            and all((f[0] > c[i]).sum() >= 2 for f in (c32, cf))]
+    if not fits:
+        raise AssertionError(f"{name}: no gate clear of the confidences "
+                             "leaves two of frame 0's people above it")
+    i = max(fits, key=lambda i: c[i + 1] - c[i])
+    gate = float((c[i] + c[i + 1]) / 2)
+    straddle = int(((c32 > gate) != (cf > gate)).sum())
+    log(f"{name} gate: min_score {gate:.6f} replaces the config's MIN_SCORE "
+        f"0.1 (seeded weights: detection confidences "
+        f"{c[0]:.4f} .. {c[-1]:.4f}, on no trained scale); it lies in the "
+        f"widest gap ({c[i]:.6f} .. {c[i + 1]:.6f}) of the card's {len(c)} "
+        f"confidences, float32 and fuse_p2p, that leaves at least two of "
+        f"frame 0's people above it on both; {int((c > gate).sum())} "
+        f"above it in all; people on its two sides on the two paths: "
+        f"{straddle}")
+    return gate
+
+
+def sc_train(K, smi, name, cfg, num_data):
+    """Phase 13 (b): SC_TRAIN_WARMUP + SC_TRAIN_STEPS train steps at the
+    config's batch of 8 on its synthetic factory (the tree's calibration,
+    the pose library), rendered on the card by the device splat; each
+    launches TRAIN_PATH and nothing else; the first step held against the
+    CPU (phase 9's train_card_vs_cpu). Returns (launches, numbers)."""
+    import os
+
+    import torch
+
+    from fvp_torch.data.loader import seq_grouped_batches
+    from fvp_torch.data.poses import load_pose_library
+    from fvp_torch.data.registry import build_dataset
+    from fvp_torch.engine.init import flax_init
+    from fvp_torch.engine.train import Trainer, step_inputs
+    from fvp_torch.geometry.grids import build_rig_constants
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+
+    dev = torch.device("cuda")
+    cfg = cfg.replace(device_render=True)
+    lib = os.path.join(cfg.data_dir, cfg.synthetic_pose_file)
+    ds = build_dataset(cfg.train_dataset, cfg, is_train=True)
+    n_lib = len(load_pose_library(lib))
+    if len(ds.poses) != n_lib or ds.poses[0]["pose"].shape != (17, 3):
+        raise AssertionError(f"{name}: the synthetic factory does not read "
+                             f"the pose library {lib}")
+    n = SC_TRAIN_WARMUP + SC_TRAIN_STEPS
+    batches = list(seq_grouped_batches(ds, cfg.batch_size, cfg.seed, 0))
+    if len(batches) < n:
+        raise AssertionError(f"{len(batches)} batches for {n} steps")
+    people = [len(r["joints_3d"]) for r in ds.records]
+    log(f"{name} train: {len(ds)} synthetic scenes (of NUM_DATA "
+        f"{num_data}) of 1..{cfg.synthetic_max_people} "
+        f"people ({sum(people)} placed) from the {n_lib} poses of "
+        f"{os.path.basename(lib)} on the tree's rig "
+        f"({cfg.synthetic_camera_file}), batch {cfg.batch_size}, rendered "
+        f"on the card by the device splat (the config renders on the host; "
+        f"DEVICE_RENDER on here), augmentation {ds.data_augmentation}")
+    rc = build_rig_constants(cfg, ds.rigs["synthetic"]).to(dev)
+    model = FasterVoxelPose(cfg)
+    flax_init(model, torch.Generator().manual_seed(cfg.seed))
+    init_state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(cfg, model, dev)
+    inputs = [step_inputs(b, dev) for _, b in batches[:n]]
+    K.reset_launches()
+    counts = launch_counts(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i, (x, targets, meta) in enumerate(inputs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ls = trainer.train_step(x, rc, targets, meta)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = step_launches(K, counts, TRAIN_PATH,
+                               f"{name} train step {i}")
+        ls = {key: float(v) for key, v in ls.items()}
+        losses.append(ls)
+        if not all(np.isfinite(v) for v in ls.values()):
+            raise AssertionError(f"{name} train step {i}: losses {ls}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[SC_TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    log(f"{name} train on {smi}: {SC_TRAIN_STEPS} steps after "
+        f"{SC_TRAIN_WARMUP} warm-up, median {med:.3f} ms ({min(timed):.3f} "
+        f".. {max(timed):.3f}); peak memory {peak:.3f} GB "
+        f"(max_memory_allocated); step ms "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)}; launches {counts}, each "
+        f"step {TRAIN_PATH}")
+    for i, ls in enumerate(losses):
+        log(f"  step {i}: total {ls['total']:.5f} 2d "
+            f"{ls['2d_heatmaps']:.6f} 1d {ls['1d_heatmaps']:.5f} bbox "
+            f"{ls['bbox']:.5f} joint {ls['joint']:.3f}")
+    train_card_vs_cpu(cfg, init_state, batches[0][1], ds)
+    return counts, {"step_ms": step_ms, "step_ms_median": med,
+                    "peak_gb": peak, "losses": losses}
+
+
+def sc_eval(K, smi, rows, name, cfg, state, ds, specs, xs, rig, det):
+    """Phase 13 (c): run_validation at the config's test batch on the card
+    with the launch counts set to 0 just before (K1-K5 once a batch, no
+    other kernel), against the same call on the CPU (the PCP dict equal,
+    identical masks, poses within 5e-2 mm, the gate clear of the CPU's
+    confidences too), K1-K5 on batch 0 against their plain versions, and
+    batch 0 stepped as run_validation steps it. Returns (launches,
+    numbers, the card's poses)."""
+    import torch
+
+    from fvp_torch.engine.serve import Engine
+    from fvp_torch.engine.validate import make_eval_step, run_validation
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+
+    dev = torch.device("cuda")
+
+    def model():
+        m = FasterVoxelPose(cfg)
+        m.load_state_dict(state)
+        return m
+
+    K.reset_launches()
+    res = run_validation(cfg, model(), ds, device=dev, log=log)
+    counts = launch_counts(K)
+    log(f"{name} eval path: {len(specs)} batches, launches {counts}")
+    expect_launches(counts, HEATMAP_PATH, f"{name} eval path")
+    if any(counts[k] != len(specs) for k in HEATMAP_PATH):
+        raise AssertionError(f"{name} eval path: not one launch a batch")
+    poses = res["fused_poses"]
+    if poses.shape != (len(ds), cfg.max_people, cfg.num_joints, 5) \
+            or not np.isfinite(poses).all():
+        raise AssertionError(f"{name} eval fused_poses {poses.shape} or "
+                             "non-finite")
+    log(f"{name} eval on {smi}: batch_ms {json.dumps(res.get('batch_ms'))} "
+        f"(first batch excluded), {res.get('fps', float('nan')):.2f} "
+        f"frames/s; people kept {int((poses[..., 0, 3] >= 0).sum())} of "
+        f"{poses[..., 0, 3].size}")
+
+    # the same call on the CPU, and its confidences against the gate
+    t = time.perf_counter()
+    res_cpu = run_validation(cfg, model(), ds, device="cpu",
+                             log=lambda s: None)
+    cpu_s = time.perf_counter() - t
+    cpu = Engine(cfg, model(), "cpu")
+    rc_cpu = cpu.rig_constants(rig)
+    with torch.inference_mode():
+        conf = torch.cat([cpu.model.detect(x.cpu(), rc_cpu, cpu.packed)[
+            "proposals"][..., 4] for x in xs])
+    conf = torch.cat([conf, torch.cat([d["proposals"][..., 4]
+                                       for d in det])])
+    gap = float((conf - cfg.min_score).abs().min())
+    log(f"{name} eval on the CPU (the same run_validation call, "
+        f"{cpu_s:.1f} s): the gate {gap:.3e} from the closest confidence "
+        f"of the card and the CPU")
+    if gap <= 1e-4:
+        raise AssertionError(f"{name} eval: fragile gate")
+    check_fused(torch.from_numpy(poses),
+                torch.from_numpy(res_cpu["fused_poses"]), f"{name} eval ")
+    log(f"{name} eval metrics (PCP, seeded weights): card "
+        f"{json.dumps(res['metrics'], default=_plain)}")
+    if not same_tree(res["metrics"], res_cpu["metrics"]):
+        raise AssertionError(f"{name} eval: the PCP dict differs from the "
+                             f"CPU's {res_cpu['metrics']}")
+    log(f"{name} eval metrics: equal to the CPU's True")
+
+    # K1-K5 on batch 0 against their plain versions, and batch 0 stepped
+    e = Engine(cfg, model(), dev)
+    rc = e.rig_constants(rig)
+    batch_kernels(cfg, e, rc, xs[0], rows, key=f"{name}_batch",
+                  what=f"{name} eval")
+    step = make_eval_step(cfg, e.model, e.packed)
+    ms = []
+    for _ in range(EVAL_FULL_BATCHES // 2 + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(xs[0], rc)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    ms = ms[1:]
+    log(f"{name} eval batch 0 stepped {len(ms)} times on {smi}: median "
+        f"{statistics.median(ms):.3f} ms ({min(ms):.3f} .. {max(ms):.3f}), "
+        f"{xs[0].shape[0] * 1e3 / statistics.median(ms):.2f} frames/s at "
+        f"B = {xs[0].shape[0]}")
+    return counts, {"batch_ms": res.get("batch_ms"), "fps": res.get("fps"),
+                    "stepped_ms": ms, "metrics": res["metrics"],
+                    "cpu_s": cpu_s}, poses
+
+
+def sc_fuse_eval(K, smi, rows, name, cfg, state, ds, specs, xs, rig, det,
+                 poses32):
+    """Phase 13 (d): the same eval with fuse_p2p, the counts set to 0 just
+    before (K1-K5, P2PNet's 25 and C2CNet's one launch a batch, P2PNet's
+    convs on conv_plan's routes); C2CNet on every batch's columns (`det`,
+    read by the detection alone) against its plain version and bit for bit
+    against its emulation; its poses against (c)'s (fuse_against_float32);
+    P2PNet on batch 0's planes against its plain version, and both nets
+    timed there. Returns (launches, numbers)."""
+    import torch
+
+    from fvp_torch.engine.serve import Engine, float32_math
+    from fvp_torch.engine.validate import run_validation
+    from fvp_torch.models.faster_voxelpose import FasterVoxelPose
+    from fvp_torch.ops.kernels import c2cnet as kc2c
+    from fvp_torch.ops.kernels import hourglass as khg
+    from fvp_torch.ops.kernels import sampler as ksamp
+
+    dev = torch.device("cuda")
+    cfg = cfg.replace(fuse_p2p=True)
+    model = FasterVoxelPose(cfg)
+    model.load_state_dict(state)
+    nb = len(specs)
+    K.reset_launches()
+    res = run_validation(cfg, model, ds, device=dev, log=log)
+    counts = launch_counts(K)
+    log(f"{name} fuse_p2p eval path: {nb} batches, launches {counts}")
+    expect_launches(counts, FUSE_PATH, f"{name} fuse_p2p eval path")
+    want = {**{k: nb for k in HEATMAP_PATH}, "c2cnet": nb, "p2pnet": 25 * nb}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{name} fuse_p2p eval path: launches {counts}, "
+                             f"expected {want}")
+    expect_conv_routes(K, "p2pnet.conv", nb, P2PNET_ROUTES)
+    log(f"{name} fuse_p2p eval on {smi}: batch_ms "
+        f"{json.dumps(res.get('batch_ms'))} (first batch excluded)")
+
+    e = Engine(cfg, model, dev)
+    pk, pc = e.packed["p2p_net"], e.packed["c2c_net"]
+    pc_cpu = {k: v.cpu() for k, v in pc.items() if torch.is_tensor(v)}
+    # C2CNet on each batch's columns: the kernel's scores as the detection
+    # read them, its plain version on the card, its emulation on the CPU
+    plain = []
+    for b, d in enumerate(det[True]):
+        cols = d["columns"]
+        got = d["hm1d"].reshape(cols.shape[:2])
+        with torch.inference_mode():
+            ref = kc2c.c2cnet_plain(pc, cols.to(dev)).cpu()
+        emu = kc2c.emulate(kc2c.c2cnet_plan(*cols.shape), pc_cpu, cols)
+        err = float((got - ref).abs().max())
+        tol = C2CNET_BATCH_RTOL * float(ref.abs().max())
+        exact = bool(torch.equal(got, emu))
+        log(f"  c2cnet batch {b} {tuple(cols.shape)}: bit for bit its CPU "
+            f"emulation (the kernel's order of sums) {exact}; max_abs_err "
+            f"{err:.3e} from its plain version (tol {tol:.3e} = "
+            f"{C2CNET_BATCH_RTOL:g} x scale; "
+            f"{err / tol * C2CNET_BATCH_RTOL:.3e} of the scale)")
+        if not exact:
+            raise AssertionError(f"{name}: c2cnet at batch {b} differs from "
+                                 "its emulation")
+        held("c2cnet", err, tol, f" at batch {b} ({name} fuse_p2p eval)")
+        if b == 0:
+            rows["c2cnet"].update({f"{name}_batch_max_abs_err": err,
+                                   f"{name}_batch_tol": tol,
+                                   f"{name}_batch_emulation_bitwise": exact})
+        plain.append({"hm1d": ref.reshape(d["hm1d"].shape)})
+    # the float32 JLN (cuDNN's P2PNet) on the fuse_p2p path's proposals:
+    # the pose each person would have in float32 at the height the bf16
+    # C2CNet picked (`det` was read before the gate was picked: each
+    # proposal's mask field is set here at the gate, as place() sets it)
+    m32 = FasterVoxelPose(cfg.replace(fuse_p2p=False))
+    m32.load_state_dict(state)
+    e32 = Engine(cfg.replace(fuse_p2p=False), m32, dev)
+    rc = e.rig_constants(rig)
+    with torch.inference_mode(), float32_math():
+        for d, dt, x in zip(plain, det[True], xs):
+            props = dt["proposals"].to(dev)
+            props[..., 3] = (props[..., 4] > cfg.min_score).float() - 1.0
+            fused, _, confs = e32.model.localize(x, rc, props, e32.packed)
+            d["fused_poses"] = e32.model.finish(props, fused, confs)[
+                "fused_poses"].cpu()
+    fuse_against_float32(name, res["fused_poses"], poses32, specs,
+                         {**det, "plain": plain}, cfg.min_score)
+
+    x = xs[0]
+    B, Kp, J = x.shape[0], cfg.max_people, cfg.num_joints
+    n = cfg.ind_voxels_per_axis[0]
+    with torch.inference_mode():
+        props = e.model.detect(x, rc, e.packed)["proposals"]
+        mask = props[..., 3] >= 0
+        planes, _ = ksamp.person_planes(x, rc, cfg, props[..., :3],
+                                        props[..., 5:7], mask)
+        planes = planes.reshape(3 * B * Kp, n, n, J).contiguous()
+        cols = det[True][0]["columns"].to(dev)
+        paired = PairedOps()
+        khg.run(pk, planes, paired)
+        got, ref = khg.p2pnet(pk, planes), khg.p2pnet_plain(pk, planes)
+        again = kc2c.c2cnet(pc, cols).cpu()
+        err, tol = (float((got - ref).abs().max()),
+                    NET_RTOL * float(ref.abs().max()))
+        times = {"p2pnet": time_ms(lambda: khg.p2pnet(pk, planes), reps=10),
+                 "c2cnet": time_ms(lambda: kc2c.c2cnet(pc, cols))}
+    if not torch.equal(again, det[True][0]["hm1d"].reshape(again.shape)):
+        raise AssertionError(f"{name}: c2cnet on batch 0's columns again "
+                             "differs from the detection's")
+    rows["p2pnet"].update({f"{name}_batch_max_abs_err": err,
+                           f"{name}_batch_tol": tol})
+    log(f"{name} fuse_p2p kernels on batch 0 (B = {B}): p2pnet "
+        f"{tuple(planes.shape)}, its {paired.launches} launches each within "
+        f"{paired.ulps:.3f} bf16 ulps of the plain op, the whole net "
+        f"max_abs_err {err:.3e} (tol {tol:.3e} = {NET_RTOL} x scale); c2cnet "
+        f"{tuple(cols.shape)} as above:")
+    for k, ms in times.items():
+        rows[k][f"{name}_batch_ms"] = ms
+        log(f"  {k:15s} {ms:8.4f} ms at B = {B}, {rows[k]['ms']:8.4f} ms "
+            f"at B = 1 ({ms / rows[k]['ms']:.2f}x)")
+    held("p2pnet", err, tol, f" at B = {B} ({name} fuse_p2p eval)")
+    if not paired.ulps <= 1.0:
+        raise AssertionError(f"{name}: a P2PNet launch beyond one bf16 ulp")
+    return counts, {"batch_ms": res.get("batch_ms"), "fps": res.get("fps"),
+                    "kernel_ms": times}
+
+
+def fuse_against_float32(name, fuse, f32, specs, det, gate) -> None:
+    """The fuse_p2p eval's poses against the float32 eval's on the card:
+    each path's mask is its detection confidences above the gate (read
+    in `det`, the same batches detected alone); the masks identical but
+    where a person's two confidences lie on the two sides of the gate.
+    Each person kept on both lies within FUSE_POSE_TOL_MM of the float32
+    JLN on the fuse_p2p path's proposals (det["plain"]'s fused_poses);
+    where the two paths pick the same voxel, that is the float32 eval's
+    pose. A person whose height differs (the bf16 C2CNet's rounding,
+    where two float32 scores lie close) keeps its xy pick; at most
+    FUSE_MAX_KERNEL_ONLY_FLIPS people take a height that C2CNet's plain
+    version (cuDNN's bf16 convs on the same columns, det["plain"]'s
+    hm1d) does not pick too."""
+    def by_record(f, key):
+        out = [None] * len(fuse)
+        for (_, idx, valid), d in zip(specs, det[f]):
+            for b in range(valid):
+                out[int(idx[b])] = d[key][b]
+        return np.stack([np.asarray(v) for v in out])
+
+    m32, mf = f32[..., 0, 3] >= 0, fuse[..., 0, 3] >= 0
+    p32, pf = by_record(False, "proposals"), by_record(True, "proposals")
+    hm32, hmf = by_record(False, "hm1d"), by_record(True, "hm1d")
+    hmp, jln32 = by_record("plain", "hm1d"), by_record("plain",
+                                                      "fused_poses")
+    straddle = (p32[..., 4] > gate) != (pf[..., 4] > gate)
+    if not (np.array_equal(m32, p32[..., 4] > gate)
+            and np.array_equal(mf, pf[..., 4] > gate)
+            and np.array_equal(m32 & ~straddle, mf & ~straddle)
+            and np.isfinite(fuse).all()):
+        raise AssertionError(f"{name} fuse_p2p eval: masks differ from the "
+                             "float32 eval's, or non-finite poses")
+    both = m32 & mf
+    same = (p32[..., :3] == pf[..., :3]).all(axis=-1) & both
+    flip = both & ~same
+    dist = np.linalg.norm(fuse[..., :3] - f32[..., :3], axis=-1).max(-1)
+    dist_j = np.linalg.norm(fuse[..., :3] - jln32[..., :3], axis=-1).max(-1)
+    moved = np.linalg.norm(pf[..., :3] - p32[..., :3], axis=-1)
+    scale = np.abs(hm32).max(-1)
+    gap = (hm32.max(-1) - np.take_along_axis(
+        hm32, hmf.argmax(-1)[..., None], -1)[..., 0]) / scale
+    shift_k = np.abs(hmf - hm32).max(-1) / scale
+    shift_p = np.abs(hmp - hm32).max(-1) / scale
+    plain_flip = both & (hmp.argmax(-1) != hm32.argmax(-1))
+    kernel_only = flip & (hmp.argmax(-1) != hmf.argmax(-1))
+    xy_same = (p32[..., :2] == pf[..., :2]).all(axis=-1)
+    kept = dist[same]
+    if kept.size < 2:
+        raise AssertionError(f"{name} fuse_p2p eval: {kept.size} people "
+                             "with the same voxel pick on both paths")
+    log(f"{name} fuse_p2p eval against the float32 eval on the card: masks "
+        f"identical but for {int(straddle.sum())} people whose two "
+        f"confidences lie on the two sides of the gate; {int(both.sum())} "
+        f"kept on both, {int(same.sum())} with the same voxel pick, their "
+        f"joint distance max {float(kept.max()):.3e} mm; every person kept "
+        f"on both from the float32 JLN on the fuse_p2p path's proposals: "
+        f"max {float(dist_j[both].max()):.3e} mm (tol {FUSE_POSE_TOL_MM} "
+        f"mm), the people it picks another height for "
+        f"{float(dist_j[flip].max()) if flip.any() else 0.0:.3e} mm")
+    log(f"  C2CNet's scores of the people kept on both, bf16 against the "
+        f"float32 module, of each person's scale: the kernel up to "
+        f"{float(shift_k[both].max()):.3e} (median "
+        f"{float(np.median(shift_k[both])):.3e}), its plain version up to "
+        f"{float(shift_p[both].max()):.3e} (median "
+        f"{float(np.median(shift_p[both])):.3e}); heights the float32 "
+        f"module does not pick: the kernel {int(flip.sum())}, the plain "
+        f"version {int(plain_flip.sum())}, both "
+        f"{int((flip & plain_flip).sum())}; the kernel's alone "
+        f"{int(kernel_only.sum())} (at most {FUSE_MAX_KERNEL_ONLY_FLIPS})")
+    flips = [(int(i), int(k), int(hm32[i, k].argmax()),
+              int(hmf[i, k].argmax()), round(float(gap[i, k]), 5),
+              round(float(moved[i, k]), 1), round(float(dist[i, k]), 3),
+              round(float(dist_j[i, k]), 4))
+             for i, k in zip(*np.nonzero(flip))]
+    log(f"  the kernel's height flips (frame, person, float32 z, fuse_p2p z, "
+        f"float32 gap / scale, cube moved mm, joints from the float32 "
+        f"eval's mm, from the float32 JLN on the same cube mm): {flips}")
+    if not (float(dist_j[both].max()) <= FUSE_POSE_TOL_MM
+            and float(kept.max()) <= FUSE_POSE_TOL_MM):
+        raise AssertionError(f"{name} fuse_p2p eval: poses beyond "
+                             f"{FUSE_POSE_TOL_MM} mm of the float32 JLN's")
+    if (flip & ~xy_same).any():
+        raise AssertionError(f"{name} fuse_p2p eval: an xy pick differs "
+                             "from the float32 eval's")
+    if int(kernel_only.sum()) > FUSE_MAX_KERNEL_ONLY_FLIPS:
+        raise AssertionError(f"{name} fuse_p2p eval: {int(kernel_only.sum())}"
+                             f" heights that the plain version does not "
+                             f"pick")
+
+
+def same_tree(a, b) -> bool:
+    """Equality of nested dicts and lists of numbers and arrays."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y)
+                                        for x, y in zip(a, b))
+    return bool(np.array_equal(np.asarray(a), np.asarray(b),
+                               equal_nan=True))
+
+
+def _plain(x):
+    """json.dumps' fallback for numpy numbers and arrays."""
+    return x.tolist() if hasattr(x, "tolist") else str(x)
 
 
 def _leaves(tree):

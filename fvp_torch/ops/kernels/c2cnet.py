@@ -402,3 +402,153 @@ def launch(packed: dict, cols: torch.Tensor, out: torch.Tensor,
         plan.N, plan.Z, plan.J, plan.cols, len(plan.phases),
         plan.depth, plan.slot_bytes, plan.bar_off, plan.x_off, plan.x_stride,
         plan.smem)
+
+
+# -- CPU emulation --------------------------------------------------------------
+# The kernel's arithmetic on the CPU, walking the plan's table on a byte
+# buffer that stands for each CTA's shared memory (the GEMM in k16 steps,
+# each step's 16 products summed exactly and rounded toward zero to float32
+# as the tensor core does, then added in float32 in K order; the
+# projection's own accumulators on the centre tap; the pool and the halo
+# rows in the epilogue; the output conv's fused multiply-adds in channel
+# order). The kernel is bit for bit this emulation
+# (tests/test_torch_kernels_cuda.py, chip_smoke.py), and the emulation is
+# held against the plain version and the reference on the CPU
+# (tests/test_torch_c2cnet_plan.py).
+
+_BF = torch.bfloat16
+
+
+def unfragment(frag, taps, cin_pad, ncols):
+    """The inverse of `fragments`: (taps, cin_pad, ncols)."""
+    S, NT = taps * cin_pad // 16, ncols // 8
+    v = frag.reshape(NT, S, 8, 4, 2, 2)        # (n, s, g, t, h, e)
+    return v.permute(1, 4, 3, 5, 0, 2).reshape(taps, cin_pad, ncols)
+
+
+def k16_sum(a, w):
+    """One k16 step of the mma into zero accumulators: (M, 16) @ (16, F)
+    of bf16 values, the exact sum (float64 holds every product, and the
+    sum of 16) rounded toward zero to float32, as the H100's mma.sync
+    rounds it (rounded to nearest, the emulation parts from the card's
+    kernel on some inputs)."""
+    s = a.double() @ w.double()
+    f = s.float()
+    return torch.where(f.double().abs() > s.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _fma_f32(acc, x, w):
+    """fmaf(x, w, acc) on float32 tensors: one rounding of the exact
+    value (x w is exact in float64, and so is its sum with acc here)."""
+    return (acc.double() + x.double() * w.double()).float()
+
+
+def emulate(plan, packed, cols, k16=k16_sum):
+    """The kernel on the CPU: (N, Z, J) float32 -> (N, Z) float32. `k16`
+    sums one k16 step."""
+    N, Z, J = cols.shape
+    wfrag = packed["w_frag"].view(torch.uint8)
+    wflat, aff = packed["w_flat"], packed["aff_flat"]
+    phases = phase_dicts(plan)
+    out = torch.zeros((N, Z))
+    for cta in range(plan.ctas):
+        n0 = cta * plan.cols
+        nh = min(plan.cols, N - n0)
+        sm = torch.zeros(plan.smem, dtype=torch.uint8)
+        xs = plan.x_stride
+        X = sm[plan.x_off:plan.x_off + 2 * nh * (Z + 6) * xs].view(_BF)
+        X.view(nh, Z + 6, xs)[:, 3:Z + 3, :J] = cols[n0:n0 + nh].to(_BF)
+        for ph in phases[:-1]:
+            for idx, vals in _gemm(ph, sm, nh, wfrag, aff, k16):
+                sm.view(vals.dtype)[idx] = vals   # after the phase's reads
+        fin = phases[-1]
+        m = torch.arange(nh * Z)
+        n, z = m // Z, m % Z
+        row = n * fin["in_rpc"] + fin["in_base"] + z
+        idx = (fin["in_off"] // 2 + row[:, None] * fin["in_stride"]
+               + torch.arange(32))
+        x = sm.view(_BF)[idx].float()
+        w = wflat[fin["w_off"]:fin["w_off"] + 32].float()
+        acc = torch.zeros(len(m))
+        for c in range(32):                  # fmaf in channel order
+            acc = _fma_f32(acc, x[:, c], w[c])
+        a0, a1 = aff[fin["aff_off"]], aff[fin["aff_off"] + 1]
+        out[n0 + n, z] = acc * a0 + a1
+    return out
+
+
+def _gemm(ph, sm, nh, wfrag, aff, k16):
+    """A CTA's GEMM phase: its writes (element indices into the shared
+    memory viewed as the values' type, values)."""
+    zl, taps, csteps = ph["zl"], ph["taps"], ph["csteps"]
+    ks, M = taps * csteps, nh * zl
+    nt, cinp = ph["ncols"] // 8, 16 * csteps
+    m_all = torch.arange(M)
+    # the ring slot: the phase's bulk copies
+    b1 = nt * ks * FRAG_BYTES
+    W = unfragment(wfrag[ph["w_off"]:][:b1].view(_BF), taps, cinp,
+                   8 * nt).float()
+    if ph["proj"]:
+        b2 = nt * csteps * FRAG_BYTES
+        PW = unfragment(wfrag[ph["pw_off"]:][:b2].view(_BF), 1, cinp,
+                        8 * nt).float()[0]
+    n, z = m_all // zl, m_all % zl
+    bfm, fm = sm.view(_BF), sm.view(torch.float32)
+    v = torch.zeros(M, 8 * nt)
+    pacc = torch.zeros(M, 8 * nt)
+    for st in range(ks):                 # k16 steps added in K order
+        t, kcs = divmod(st, csteps)
+        rows = n * ph["in_rpc"] + ph["in_base"] + z + t
+        idx = (ph["in_off"] // 2 + rows[:, None] * ph["in_stride"]
+               + 16 * kcs + torch.arange(16))
+        a = bfm[idx].float()
+        v = v + k16(a, W[t, 16 * kcs:16 * kcs + 16])
+        if ph["proj"] and t == taps // 2:
+            pacc = pacc + k16(a, PW[16 * kcs:16 * kcs + 16])
+    cols_ = torch.arange(8 * nt)
+    fo, ostr, orpc = ph["fo"], ph["out_stride"], ph["out_rpc"]
+    writes = []
+
+    def store(base, row, col, y, zo, top):
+        """bf16 y at (row, col) of the buffer at `base`, zero halo rows
+        below zo == 0 and above zo == top."""
+        idx = base // 2 + row * ostr + col
+        zo = zo.expand_as(idx)
+        writes.append((idx.reshape(-1), y.to(_BF).reshape(-1)))
+        for edge, d in ((zo == 0, -1), (zo == top, 1)):
+            e = idx[edge] + d * ostr
+            writes.append((e, torch.zeros(len(e), dtype=_BF)))
+
+    if ph["kind"] == UPCONV:
+        r_, f_ = cols_ // fo, cols_ % fo
+        y = v * aff[ph["aff_off"] + f_] + aff[ph["aff_off"] + fo + f_]
+        y = torch.relu(y).to(_BF).float()
+        zo = 2 * z[:, None] + r_[None, :]
+        row = n[:, None] * orpc + 1 + zo
+        skip = bfm[ph["res_off"] // 2 + row * ostr + f_[None, :]].float()
+        store(ph["out_off"], row, f_[None, :], (y + skip).to(_BF), zo,
+              2 * zl - 1)
+        return writes
+    y = v * aff[ph["aff_off"] + cols_] + aff[ph["aff_off"] + fo + cols_]
+    row = n[:, None] * orpc + 1 + z[:, None]
+    if ph["res"] == RES_BF16:
+        y = y + bfm[ph["res_off"] // 2 + row * ostr + cols_].float()
+    elif ph["res"] == RES_PROJ:
+        y = y + fm[ph["p_off"] // 4 + m_all[:, None] * 8 * nt + cols_]
+    if ph["relu"]:
+        y = torch.relu(y)
+    y = y.to(_BF)
+    store(ph["out_off"], row, cols_, y, z[:, None], zl - 1)
+    if ph["pool_off"] >= 0:              # rows m, m + 1 of an even m
+        even = z % 2 == 0
+        pooled = torch.maximum(y[even].float(), y[m_all[even] + 1].float())
+        zp = (z[even] // 2)[:, None]
+        prow = n[even][:, None] * ph["pool_rpc"] + 1 + zp
+        store(ph["pool_off"], prow, cols_, pooled, zp, zl // 2 - 1)
+    if ph["proj"]:                       # float32, into P
+        p = pacc * aff[ph["paff_off"] + cols_] + \
+            aff[ph["paff_off"] + fo + cols_]
+        pidx = ph["p_off"] // 4 + m_all[:, None] * 8 * nt + cols_
+        writes.append((pidx.reshape(-1), p.reshape(-1)))
+    return writes

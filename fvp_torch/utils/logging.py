@@ -7,9 +7,29 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import time
 from typing import Any
+
+
+def literal(x: Any) -> str:
+    """`x` (nested dicts, lists, numpy scalars and arrays) written as a
+    Python literal that `ast.literal_eval` reads back, as
+    tools/summarize_run.py reads the train log's metric lines: numbers
+    plain, an infinite float as 1e999 (read back as inf; `repr` writes
+    `inf`, which is no literal)."""
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{literal(k)}: {literal(v)}"
+                               for k, v in x.items()) + "}"
+    if isinstance(x, (list, tuple)) or hasattr(x, "tolist"):
+        x = x.tolist() if hasattr(x, "tolist") else x
+        if not isinstance(x, (list, tuple)):
+            return literal(x)
+        return "[" + ", ".join(literal(v) for v in x) + "]"
+    if isinstance(x, float) and math.isinf(x):
+        return "1e999" if x > 0 else "-1e999"
+    return repr(x)
 
 
 def create_logger(output_dir: str, cfg_name: str, phase: str = "train"):

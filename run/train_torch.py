@@ -17,15 +17,22 @@ checkpoint.pth (the full train state; --resume continues from it, in the
 middle of an epoch too, or where there is none from the reference's
 checkpoint.msgpack in the same directory) and model_best.pth (a state
 dict that run/validate_torch.py --checkpoint reads). It runs on `cuda` unless
---device says otherwise, and raises without a card.
+--device says otherwise, and raises without a card. SIGUSR1 dumps every
+thread's stack to stderr without stopping the run (the way to see where a
+stalled run waits; python -m fvp_torch.tools.train_supervisor sends it
+before a restart).
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import os
+import signal
 import sys
 import time
+
+faulthandler.register(signal.SIGUSR1, all_threads=True)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -46,7 +53,7 @@ from fvp_torch.geometry.grids import build_rig_constants  # noqa: E402
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose  # noqa: E402
 from fvp_torch.models.resnet import PoseResNet  # noqa: E402
 from fvp_torch.utils.logging import (AverageMeter, MetricWriter,  # noqa: E402
-                                     create_logger)
+                                     create_logger, literal)
 
 
 def load_backbone(cfg):
@@ -191,7 +198,7 @@ def main(argv=None) -> int:
                                  log=logger.info)
             trainer.model.train()
             metrics = res.get("metrics", {})
-            logger.info(f"epoch {epoch} metrics: {metrics}")
+            logger.info(f"epoch {epoch} metrics: {literal(metrics)}")
             score = metrics.get("mean_ap", metrics.get("avg_pcp", 0.0))
             if score >= best:
                 best = score

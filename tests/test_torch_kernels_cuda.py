@@ -773,22 +773,18 @@ def test_c2cnet_kernel(dev, N, Z, J, depth):
 @pytest.mark.parametrize("N,Z,J", C2C_SHAPES)
 def test_c2cnet_kernel_follows_its_emulation(dev, N, Z, J, seed):
     """The kernel against its CPU emulation
-    (tests/test_torch_c2cnet_plan.py::emulate), which sums in the kernel's
+    (ops/kernels/c2cnet.py::emulate), which sums in the kernel's
     order: each k16 step's products exactly, rounded toward zero to
     float32, the steps added in K order. Bit for bit: so where the kernel
     parts from the plain version (cuDNN's float32 sums in another order,
     an activation rounded to the other bf16 neighbour and carried on
     through the net), that is the order of the sums, not a fault of the
     kernel."""
-    # pytest puts tests/ on the path (another installed package may be
-    # called `tests`)
-    from test_torch_c2cnet_plan import emulate
-
     packed = pack_model(_fuse_model(J, dev))["c2c_net"]
     cols = _columns((N, Z, J), seed, dev)
     got = kc2c.c2cnet(packed, cols).cpu()
     cpu = {k: v.cpu() for k, v in packed.items() if torch.is_tensor(v)}
-    ref = emulate(kc2c.c2cnet_plan(N, Z, J), cpu, cols.cpu())
+    ref = kc2c.emulate(kc2c.c2cnet_plan(N, Z, J), cpu, cols.cpu())
     assert torch.equal(got, ref), float((got - ref).abs().max())
 
 

@@ -70,6 +70,14 @@ def test_train_cli_on_cpu_and_resume(tmp_path):
     text = "".join(p.read_text() for p in out.iterdir()
                    if p.name.startswith("train_torch"))
     assert "resumed from epoch 1" in text and "epoch 1 metrics" in text
+    # the reference's run summary reads the port's train logs
+    spec = importlib.util.spec_from_file_location(
+        "summarize_run", os.path.join(ROOT, "tools/summarize_run.py"))
+    summarize = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(summarize)
+    epochs = summarize.parse_logs(str(out))
+    assert sorted(epochs) == [0, 1]
+    assert all("mean_ap" in m and "recall@500" in m for m in epochs.values())
 
 
 def test_train_cli_needs_a_card_or_device(tmp_path):
