@@ -36,6 +36,7 @@ from fvp_torch.models.convert import (from_jax_backbone_variables,
                                       from_jax_variables)
 from fvp_torch.models.faster_voxelpose import FasterVoxelPose
 from fvp_torch.models.resnet import PoseResNet
+from fvp_torch.utils import tracing
 
 
 @contextlib.contextmanager
@@ -80,6 +81,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def copy_in(frame, device: torch.device) -> torch.Tensor:
+    """The frame as float32 on `device`: the step's copy to the card, traced
+    as `copy_in` with the bytes it lands (`copy_in_bytes`)."""
+    with tracing.span("copy_in"):
+        x = torch.as_tensor(frame, dtype=torch.float32, device=device)
+        tracing.count("copy_in_bytes", x.nbytes)
+    return x
+
+
+@tracing.spanned("backbone")
 def backbone_heatmaps(cfg: FVPConfig, backbone: PoseResNet, packed: dict,
                       images: torch.Tensor) -> torch.Tensor:
     """The backbone on normalized float32 images (B, V, H, W, 3) on its
@@ -127,9 +138,9 @@ class Engine:
         h, w) float32 on the engine's device."""
         if self.backbone is None:
             raise ValueError("this engine holds no backbone")
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         return backbone_heatmaps(self.cfg, self.backbone,
-                                 self.backbone_packed, x)
+                                 self.backbone_packed,
+                                 copy_in(images, self.device))
 
 
 class Predictor(Engine):
@@ -173,13 +184,13 @@ class Predictor(Engine):
         Engine.__init__(self, cfg, model, device, backbone)
         self.rc = self.rig_constants(rig)
 
+    @tracing.spanned("predict")
     @torch.inference_mode()
     @float32_math()
     def __call__(self, frame) -> dict[str, torch.Tensor]:
         if self.backbone is not None:
             hm = self.heatmaps(frame)
         else:
-            hm = torch.as_tensor(frame, dtype=torch.float32,
-                                 device=self.device).contiguous()
+            hm = copy_in(frame, self.device).contiguous()
         out = self.model(hm, self.rc, self.packed)
         return {k: out[k] for k in ("fused_poses", "proposals", "mask")}

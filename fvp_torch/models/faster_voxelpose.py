@@ -59,6 +59,7 @@ from fvp_torch.ops.kernels.softargmax import soft_argmax
 from fvp_torch.ops.kernels.weightnet import (weightnet_pool,
                                              weightnet_pool_bf16)
 from fvp_torch.ops.nms import nms_topk_2d
+from fvp_torch.utils import tracing
 
 
 def _cudnn_net(packed: dict, name: str, net: nn.Module,
@@ -113,13 +114,15 @@ class FasterVoxelPose(nn.Module):
             set_compute_dtype(net, cfg.compute_dtype)
 
     # ------------------------------------------------------------------
+    @tracing.spanned("detect")
     def detect(self, heatmaps, rc: RigConstants, packed: dict | None,
                train: bool = False, meta: dict | None = None) -> dict:
         """HDN: heatmaps -> proposals (B, K, 7), the raw maps and C2CNet's
         input, the proposals' z-columns (B*K, Z, J). In train mode
         CenterNet and C2CNet run as their modules, and with `meta` the
         proposals are matched to its people."""
-        volumes = whole_sample(heatmaps, rc, self.cfg)       # (B, X, Y, Z, J)
+        with tracing.span("whole_sample"):
+            volumes = whole_sample(heatmaps, rc, self.cfg)   # (B, X, Y, Z, J)
         return self.propose(volumes, rc, packed, train, meta)
 
     def propose(self, volumes, rc: RigConstants, packed: dict | None,
@@ -132,24 +135,26 @@ class FasterVoxelPose(nn.Module):
         K = cfg.max_people
         nx, ny, nz = cfg.voxels_per_axis
 
-        if train:
-            hm2d, bbox_map = self.pose_net.center_net(volumes)
-        else:
-            bev = volumes.amax(dim=3)                        # (B, X, Y, J)
-            if "center_net_bf16" in packed:
-                hm2d, bbox_map = centernet_bf16(packed["center_net_bf16"],
-                                                bev)
+        with tracing.span("centernet"):
+            if train:
+                hm2d, bbox_map = self.pose_net.center_net(volumes)
             else:
-                hm2d, bbox_map = centernet_forward(packed["center_net"], bev)
-        confs2d, xy, flat = nms_topk_2d(hm2d[..., 0].detach(), K)
-
-        bbox_flat = bbox_map.reshape(B, nx * ny, 2)
-        match_bbox = torch.gather(
-            bbox_flat.detach(), 1, flat[:, :, None].expand(B, K, 2))
-        J = volumes.shape[-1]
-        vol_flat = volumes.reshape(B, nx * ny, nz, J)
-        columns = torch.gather(
-            vol_flat, 1, flat[:, :, None, None].expand(B, K, nz, J))
+                bev = volumes.amax(dim=3)                    # (B, X, Y, J)
+                if "center_net_bf16" in packed:
+                    hm2d, bbox_map = centernet_bf16(
+                        packed["center_net_bf16"], bev)
+                else:
+                    hm2d, bbox_map = centernet_forward(packed["center_net"],
+                                                       bev)
+        with tracing.span("nms"):
+            confs2d, xy, flat = nms_topk_2d(hm2d[..., 0].detach(), K)
+            bbox_flat = bbox_map.reshape(B, nx * ny, 2)
+            match_bbox = torch.gather(
+                bbox_flat.detach(), 1, flat[:, :, None].expand(B, K, 2))
+            J = volumes.shape[-1]
+            vol_flat = volumes.reshape(B, nx * ny, nz, J)
+            columns = torch.gather(
+                vol_flat, 1, flat[:, :, None, None].expand(B, K, nz, J))
         det = self.place(confs2d, xy, match_bbox, columns, rc, packed,
                          train, meta)
         return {**det, "hm2d": hm2d[..., 0], "bbox_flat": bbox_flat}
@@ -166,33 +171,37 @@ class FasterVoxelPose(nn.Module):
         B, K = confs2d.shape
         nz = cfg.voxels_per_axis[2]
         columns = columns.reshape(B * K, nz, columns.shape[-1])
-        if train:
-            hm1d = self.pose_net.c2c_net(columns)
-        elif cfg.fuse_p2p and nz % 4 == 0:
-            hm1d = c2cnet(packed["c2c_net"], columns)
-        else:
-            hm1d = _cudnn_net(packed, "c2c_net", self.pose_net.c2c_net,
-                              columns)
-        hm1d = hm1d.reshape(B, K, nz)
+        with tracing.span("c2cnet"):
+            if train:
+                hm1d = self.pose_net.c2c_net(columns)
+            elif cfg.fuse_p2p and nz % 4 == 0:
+                hm1d = c2cnet(packed["c2c_net"], columns)
+            else:
+                hm1d = _cudnn_net(packed, "c2c_net", self.pose_net.c2c_net,
+                                  columns)
+            hm1d = hm1d.reshape(B, K, nz)
 
-        z_idx = torch.argmax(hm1d.detach(), dim=2)           # (B, K)
-        confs1d = hm1d.detach().amax(dim=2)
-        scale, bias = rc.voxel_to_mm
-        idx_xyz = torch.cat([xy, z_idx[:, :, None].to(torch.int32)],
-                            dim=2).to(torch.float32)
-        centers_mm = idx_xyz * scale + bias                  # (B, K, 3)
-        confs = confs2d * confs1d
-        if train and meta is not None:
-            proposal2gt, match_bbox = match_proposals_to_gt(
-                centers_mm, match_bbox, meta["roots_3d"], meta["bbox"],
-                meta["num_person"])
-        else:
-            proposal2gt = (confs > cfg.min_score).to(torch.float32) - 1.0
-        proposals = torch.cat([centers_mm, proposal2gt[:, :, None],
-                               confs[:, :, None], match_bbox], dim=2)
+        with tracing.span("proposals"):
+            z_idx = torch.argmax(hm1d.detach(), dim=2)       # (B, K)
+            confs1d = hm1d.detach().amax(dim=2)
+            scale, bias = rc.voxel_to_mm
+            idx_xyz = torch.cat([xy, z_idx[:, :, None].to(torch.int32)],
+                                dim=2).to(torch.float32)
+            centers_mm = idx_xyz * scale + bias              # (B, K, 3)
+            confs = confs2d * confs1d
+            if train and meta is not None:
+                proposal2gt, match_bbox = match_proposals_to_gt(
+                    centers_mm, match_bbox, meta["roots_3d"], meta["bbox"],
+                    meta["num_person"])
+            else:
+                proposal2gt = (confs > cfg.min_score).to(torch.float32) \
+                    - 1.0
+            proposals = torch.cat([centers_mm, proposal2gt[:, :, None],
+                                   confs[:, :, None], match_bbox], dim=2)
         return {"proposals": proposals, "hm1d": hm1d, "columns": columns}
 
     # ------------------------------------------------------------------
+    @tracing.spanned("localize")
     def localize(self, heatmaps, rc: RigConstants, proposals,
                  packed: dict | None, train: bool = False):
         """JLN: tri-planes -> P2PNet -> soft-argmax -> fusion.
@@ -202,10 +211,11 @@ class FasterVoxelPose(nn.Module):
         J = cfg.num_joints
         n = cfg.ind_voxels_per_axis[0]
 
-        person_mask = proposals[..., 3] >= 0
-        planes, offsets = person_planes(
-            heatmaps, rc, cfg, proposals[..., 0:3], proposals[..., 5:7],
-            person_mask)                                     # (3, BK, n, n, J)
+        with tracing.span("person_planes"):
+            person_mask = proposals[..., 3] >= 0
+            planes, offsets = person_planes(
+                heatmaps, rc, cfg, proposals[..., 0:3], proposals[..., 5:7],
+                person_mask)                                 # (3, BK, n, n, J)
         if train:
             # the reference trains the JLN per scene on its matched people
             # only: the plane stacks scene-major, each scene a BatchNorm
@@ -216,37 +226,49 @@ class FasterVoxelPose(nn.Module):
                 .reshape(B * 3 * K, n, n, J)
             mask2d = person_mask[:, None, :].expand(B, 3, K).reshape(
                 B, 3 * K)
-            feats_b = self.joint_net.conv_net(pb, mask2d)
+            with tracing.span("p2pnet"):
+                feats_b = self.joint_net.conv_net(pb, mask2d)
+                tracing.count("jln_planes", pb.shape[0])
             feats = feats_b.reshape(B, 3, K, n, n, J).transpose(0, 1) \
                 .reshape(3 * B * K, n, n, J)
-            weights = self.joint_net.weight_net(feats_b, mask2d).reshape(
-                B, 3, K, J, 1).transpose(0, 1).reshape(3, B * K, J, 1)
-            coords, confs = plain_softargmax.soft_argmax(
-                feats.reshape(3, B * K, n * n, J), rc.center_grid, cfg.beta)
+            with tracing.span("weightnet"):
+                weights = self.joint_net.weight_net(feats_b, mask2d) \
+                    .reshape(B, 3, K, J, 1).transpose(0, 1) \
+                    .reshape(3, B * K, J, 1)
+            with tracing.span("soft_argmax"):
+                coords, confs = plain_softargmax.soft_argmax(
+                    feats.reshape(3, B * K, n * n, J), rc.center_grid,
+                    cfg.beta)
         else:
             flat = planes.reshape(3 * B * K, n, n, J)
-            if cfg.fuse_p2p and hourglass_supported(flat.shape):
-                feats = p2pnet(packed["p2p_net"], flat)
-            else:
-                feats = _cudnn_net(packed, "conv_net",
-                                   self.joint_net.conv_net, flat)
-            coords, confs = soft_argmax(feats.reshape(3, B * K, n * n, J),
-                                        rc.center_grid, cfg.beta)
-            if "weight_net_bf16" in packed:
-                pooled = weightnet_pool_bf16(feats,
-                                             packed["weight_net_bf16"])
-            else:
-                pooled = weightnet_pool(feats, packed["weight_net"])
-            # pooled: (3BK, J, C)
-            weights = self.joint_net.weight_net.head(pooled).reshape(
-                3, B * K, J, 1)
-        off = offsets.reshape(B * K, 1, 3)
-        coords = torch.stack([
-            coords[0] + off[..., 0:2],                       # xy plane
-            coords[1] + off[..., ::2],                       # xz plane
-            coords[2] + off[..., 1:],                        # yz plane
-        ])
-        fused = self._fuse(coords, weights)                  # (BK, J, 3)
+            with tracing.span("p2pnet"):
+                if cfg.fuse_p2p and hourglass_supported(flat.shape):
+                    feats = p2pnet(packed["p2p_net"], flat)
+                else:
+                    feats = _cudnn_net(packed, "conv_net",
+                                       self.joint_net.conv_net, flat)
+                tracing.count("jln_planes", flat.shape[0])
+            with tracing.span("soft_argmax"):
+                coords, confs = soft_argmax(
+                    feats.reshape(3, B * K, n * n, J), rc.center_grid,
+                    cfg.beta)
+            with tracing.span("weightnet"):
+                if "weight_net_bf16" in packed:
+                    pooled = weightnet_pool_bf16(feats,
+                                                 packed["weight_net_bf16"])
+                else:
+                    pooled = weightnet_pool(feats, packed["weight_net"])
+                # pooled: (3BK, J, C)
+                weights = self.joint_net.weight_net.head(pooled).reshape(
+                    3, B * K, J, 1)
+        with tracing.span("fuse"):
+            off = offsets.reshape(B * K, 1, 3)
+            coords = torch.stack([
+                coords[0] + off[..., 0:2],                   # xy plane
+                coords[1] + off[..., ::2],                   # xz plane
+                coords[2] + off[..., 1:],                    # yz plane
+            ])
+            fused = self._fuse(coords, weights)              # (BK, J, 3)
         return (fused.reshape(B, K, J, 3), coords.reshape(3, B, K, J, 2),
                 confs.reshape(B, K))
 
@@ -267,6 +289,7 @@ class FasterVoxelPose(nn.Module):
         return torch.cat([x, y, z], dim=2)
 
     @staticmethod
+    @tracing.spanned("finish")
     def finish(proposals, fused, jln_confs) -> dict:
         """forward's tail on the HDN's proposals (B, K, 7) and the JLN's
         fused poses (B, K, J, 3) and scores (B, K): unmatched people are
