@@ -1,18 +1,19 @@
 """One run of a cell: set-up, the measured window, the comparison.
 
-The run builds one `fvp_torch.engine.serve.Predictor` from weights drawn
-from the seed, makes the traffic's ring of distinct input batches in host
-memory, warms up on every ring slot, then drives a closed loop for the
-window: one client, one batch in flight, `predictor(batch)` on the host
-batch (the program's own host-to-device copy inside), then its
-`fused_poses`, `proposals` and `mask` copied back to the host. After the
-window it reads the memory peak, frees the program and judges the
-answers of the judged slots against the plain reference.
+The run builds the program of the configuration's family (`cell.family`,
+see `fvpbench/spec.py`) from weights drawn from the seed, makes the
+traffic's ring of distinct input batches in host memory, warms up on
+every ring slot, then drives a closed loop for the window: one client,
+one batch in flight, `predictor(batch)` on the host batch (the program's
+own host-to-device copy inside), then the family's `OUTPUTS` copied back
+to the host. After the window it reads the memory peak, frees the program
+and judges the answers of the judged slots against the plain reference.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import statistics
 import time
@@ -23,10 +24,6 @@ import torch
 
 from fvpbench import judge, trace as tracing, traffic
 from fvpbench.spec import Cell, metric_reader
-from reference.fvp import Reference
-from reference.geometry import Space, snap
-
-OUTPUTS = ("fused_poses", "proposals", "mask")
 
 
 @dataclass
@@ -57,43 +54,23 @@ class Run:
     def config(self) -> dict:
         return self.cell.config
 
-    def sampled_people(self) -> list:
-        """(cropped voxels, people sampled) of each batch's person cubes:
-        the kept people whose crop is not empty."""
-        props = torch.stack([o["proposals"] for _, o in self.outputs])
-        s = Space.from_config(self.config["config"])
-        flat = props.reshape(-1, 7).float()
-        _, start, end, alive, _ = snap(s, flat[:, 0:3], flat[:, 5:7])
-        live = alive & (flat[:, 3] >= 0)
-        vox = torch.prod((end - start).clamp(min=0).double(), dim=1) * live
-        per = props.shape[1] * props.shape[2]
-        return [(float(v), int(n)) for v, n in zip(
-            vox.reshape(-1, per).sum(dim=1), live.reshape(-1, per).sum(dim=1))]
-
-
-def _fvp_config(config: dict):
-    from fvp_torch.config import FVPConfig
-    return FVPConfig(**{k: tuple(v) if isinstance(v, list) else v
-                        for k, v in config["config"].items()})
-
 
 class Spans:
-    """Wrappers on the predictor instance's `heatmaps` and its model's
-    `detect` and `localize`: a `record_function` range each when the run
-    is traced, and the heatmaps of the judged slots kept for the
-    comparison (their last answer in the window)."""
+    """Wrappers on the family's `STAGES` of the predictor instance: a
+    `record_function` range each when the run is traced, and the output of
+    its `JUDGED_STAGE` on the judged slots kept for the comparison (their
+    last answer in the window)."""
 
-    def __init__(self, predictor, judged: list, traced: bool):
+    def __init__(self, predictor, family, judged: list, traced: bool):
         self.slot = None
         self.kept = {}
         self.judged = set(judged)
         self.traced = traced
-        if predictor.backbone is not None:
-            predictor.heatmaps = self._wrap("heatmaps", predictor.heatmaps,
-                                            keep=True)
-        model = predictor.model
-        model.detect = self._wrap("detect", model.detect)
-        model.localize = self._wrap("localize", model.localize)
+        for path in family.STAGES:
+            *owner, name = path.split(".")
+            obj = functools.reduce(getattr, owner, predictor)
+            setattr(obj, name, self._wrap(name, getattr(obj, name),
+                                          keep=path == family.JUDGED_STAGE))
 
     def range(self, name: str):
         if self.traced:
@@ -119,12 +96,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
              device, t_start: float, wrap=None) -> tuple:
     """(Run, numbers the comparison read, per-slot readings). `wrap`, if
     given, is called on the predictor after set-up (the fault tests)."""
-    from fvp_torch.engine.serve import Predictor
-    from fvp_torch.geometry.cameras import CameraRig
     from fvp_torch.ops.kernels import all_kernels
 
     device = torch.device(device)
-    config, mix = cell.config, cell.traffic
+    config, mix, fam = cell.config, cell.traffic, cell.family
     parts = {}
     mark = [t_start]
 
@@ -135,22 +110,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
 
     lap("start")
     rig = traffic.rig_of(config)
-    sd, bb = traffic.seeded_weights(config, seed, device)
+    weights = fam.weights(config, seed, device, cell.sends_images)
     lap("weights")
     ring = traffic.frame_ring(config, mix, rig, seed, device)
     lap("frames")
-    traffic.gate_scores(config, sd, bb, rig, ring[0], device)
+    fam.gate(config, weights, rig, ring[0], device)
     gc.collect()
     if device.type == "cuda":          # the peak is the program's alone
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     lap("gate")
-    predictor = Predictor.from_state_dict(
-        _fvp_config(config), sd, CameraRig(**rig), device=device,
-        backbone_state_dict=bb)
+    predictor = fam.predictor(config, weights, rig, device)
     lap("predictor")
     slots = traffic.judged_slots(mix, seed)
-    spans = Spans(predictor, slots, traced)
+    spans = Spans(predictor, fam, slots, traced)
     if wrap is not None:
         wrap(predictor)
 
@@ -161,7 +134,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
             out = predictor(ring[r])
         t1 = time.perf_counter()
         with spans.range("to_host"):
-            host = {k: out[k].cpu() for k in OUTPUTS}
+            host = {k: out[k].cpu() for k in fam.OUTPUTS}
         return host, t0, t1, time.perf_counter()
 
     for r in list(range(len(ring))) + [0, 1 % len(ring)]:
@@ -206,7 +179,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
               launches=launches, setup_s=setup_s, setup_parts=parts,
               memory_peak_bytes=peak)
     if prof is not None:
-        run.trace = tracing.parse(prof)
+        run.trace = tracing.parse(prof, tracing.stage_spans(fam))
         run.notes += run.trace.notes
         del prof
 
@@ -215,33 +188,24 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers, readings = judge_run(cell, rig, sd, bb, ring, slots, outputs,
+    numbers, readings = judge_run(cell, rig, weights, ring, slots, outputs,
                                   kept, device)
     return run, numbers, readings
 
 
-def judge_run(cell, rig, sd, bb, ring, slots, outputs, kept, device):
+def judge_run(cell, rig, weights, ring, slots, outputs, kept, device):
     """The comparison: every answer of the judged slots against the plain
     reference. Returns (numbers, per-slot readings)."""
-    ref = Reference.from_config(cell.config["config"], rig, sd, bb, device)
-    images = cell.traffic["input"] == "images"
+    ref = cell.family.reference(cell.config, rig, weights, device)
     readings = []
     for r in slots:
         answers = [o for s, o in outputs if s == r]
-        frame = ring[r].to(device)
-        if images:
-            hm = kept[r]
-            if hm is None:
-                raise RuntimeError(f"slot {r}: no heatmaps kept")
-            got = {"heatmaps": judge.judge_heatmaps(hm, ref.heatmaps(frame))}
-        else:
-            hm, got = frame, {}
-        sj = judge.SlotJudge(ref, hm)
+        sj = cell.family.slot_judge(ref, ring[r].to(device), kept[r])
         for a in answers:
-            readings.append({**got, **sj.judge(a), "slot": r})
+            readings.append({**sj.stage, **sj.judge(a), "slot": r})
         if not answers:
-            readings.append({**got, "slot": r, "missing": 1.0})
-        del sj, frame, hm
+            readings.append({**sj.stage, "slot": r, "missing": 1.0})
+        del sj
     del ref
     numbers = judge.combine([{k: v for k, v in x.items() if k != "slot"}
                              for x in readings])
@@ -253,21 +217,22 @@ def control_run(cell: Cell, seed: int, fmt: str, device) -> tuple:
     program's place on the judged slots of the seed's traffic, its
     answers judged as a run judges the program's. (numbers, readings)."""
     device = torch.device(device)
-    config, mix = cell.config, cell.traffic
+    config, mix, fam = cell.config, cell.traffic, cell.family
     rig = traffic.rig_of(config)
-    sd, bb = traffic.seeded_weights(config, seed, device)
+    weights = fam.weights(config, seed, device, cell.sends_images)
     ring = traffic.frame_ring(config, mix, rig, seed, device)
-    traffic.gate_scores(config, sd, bb, rig, ring[0], device)
+    fam.gate(config, weights, rig, ring[0], device)
     slots = traffic.judged_slots(mix, seed)
-    low = Reference.from_config(config["config"], rig, sd, bb, device, fmt)
+    low = fam.reference(config, rig, weights, device, fmt)
+    stage = fam.JUDGED_STAGE.rsplit(".", 1)[-1]
     outputs, kept = [], {}
     for r in slots:
         out = low.forward(ring[r].to(device))
-        kept[r] = out.pop("heatmaps")
+        kept[r] = out.pop(stage)
         outputs.append((r, {k: v.cpu() for k, v in out.items()}))
     del low
     gc.collect()
-    return judge_run(cell, rig, sd, bb, ring, slots, outputs, kept, device)
+    return judge_run(cell, rig, weights, ring, slots, outputs, kept, device)
 
 
 def parts(readings: list) -> dict:

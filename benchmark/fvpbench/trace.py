@@ -1,11 +1,11 @@
 """The traced run's device timeline, from torch.profiler's events.
 
-The harness records host spans with `record_function` (its own around
-each call and copy back, and around the program's `heatmaps`, `detect`
-and `localize`, wrapped on the instance). Each device operation is tied
-to the host call that launched it by its correlation id, and so to the
-innermost span the launch fell in. Times are in the profiler's clock,
-seconds.
+The harness records host spans with `record_function`: its own around
+each call and copy back (`HARNESS`), and one around each of the family's
+`STAGES`, wrapped on the program's instance and named by the path's last
+name (`stage_spans`). Each device operation is tied to the host call that
+launched it by its correlation id, and so to the innermost span the
+launch fell in. Times are in the profiler's clock, seconds.
 """
 
 from __future__ import annotations
@@ -15,8 +15,12 @@ import re
 from collections import defaultdict
 from dataclasses import dataclass, field
 
-SPANS = ("heatmaps", "detect", "localize", "call", "to_host")
-INNER = ("heatmaps", "detect", "localize")
+HARNESS = ("call", "to_host")
+
+
+def stage_spans(family) -> tuple:
+    """The span names of the family's `STAGES`: each path's last name."""
+    return tuple(p.rsplit(".", 1)[-1] for p in family.STAGES)
 
 
 @dataclass
@@ -26,6 +30,7 @@ class Trace:
     ops: list                           # (name, start, dur, span, kernel?)
     calls: int                          # batches in the window
     notes: list = field(default_factory=list)
+    stages: tuple = ()                  # the family's stage spans
 
     @property
     def window_s(self) -> float:
@@ -61,15 +66,19 @@ class Trace:
         return dict(out)
 
     def span_at(self, t: float) -> str:
-        """The innermost span the host was in at `t`."""
+        """The innermost span the host was in at `t`: of the spans open at
+        `t`, the latest to start (the first of `stages`, then `to_host`,
+        then `call`, on a tie)."""
         if not hasattr(self, "_starts"):
             self._starts = {k: [s for s, _ in v]
                             for k, v in self.spans.items()}
-        for name in INNER + ("to_host", "call"):
+        best, start = "between calls", None
+        for name in self.stages + ("to_host", "call"):
             i = bisect.bisect_right(self._starts.get(name, []), t) - 1
-            if i >= 0 and t < self.spans[name][i][1]:
-                return name
-        return "between calls"
+            if i >= 0 and t < self.spans[name][i][1] \
+                    and (start is None or self._starts[name][i] > start):
+                best, start = name, self._starts[name][i]
+        return best
 
     def idle_by_span(self) -> dict:
         """Idle device seconds inside the window by what the host was in
@@ -105,8 +114,10 @@ def _ns(e, what: str) -> float:
     raise AttributeError(f"profiler event has no {what}_ns or {what}_us")
 
 
-def parse(prof) -> Trace:
-    """A Trace from a stopped torch.profiler.profile."""
+def parse(prof, stages: tuple) -> Trace:
+    """A Trace from a stopped torch.profiler.profile whose host spans are
+    `HARNESS` and the stage spans `stages`."""
+    named = set(HARNESS) | set(stages)
     events = prof.profiler.kineto_results.events()
     spans = defaultdict(list)
     launch = {}
@@ -116,9 +127,9 @@ def parse(prof) -> Trace:
         start = _ns(e, "start") * 1e-9
         dur = _ns(e, "duration") * 1e-9
         if str(e.device_type()).endswith("CUDA"):
-            if name not in SPANS:      # not the spans' device-side copies
+            if name not in named:      # not the spans' device-side copies
                 device.append((name, start, dur, e.correlation_id()))
-        elif name in SPANS:
+        elif name in named:
             spans[name].append((start, start + dur))
         elif name.startswith("cu") and e.correlation_id():
             launch[e.correlation_id()] = start
@@ -129,7 +140,8 @@ def parse(prof) -> Trace:
     if not calls or not backs:
         raise RuntimeError("trace: no harness spans recorded")
     window = (calls[0][0], backs[-1][1])
-    tr = Trace(window=window, spans=dict(spans), ops=[], calls=len(calls))
+    tr = Trace(window=window, spans=dict(spans), ops=[], calls=len(calls),
+               stages=tuple(stages))
     missing = 0
     for name, start, dur, corr in device:
         kernel = not name.startswith(("Memcpy", "Memset"))

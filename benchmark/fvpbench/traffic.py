@@ -1,28 +1,14 @@
-"""Inputs and weights from a seed: the one generator every traffic mix
-goes through.
+"""Inputs from a seed: the one generator every traffic mix goes through,
+and the seeded draw that each family's weights go through.
 
-Weights are drawn on the run's device by a torch.Generator in one normal
-and one uniform draw over all leaves, then scaled leaf by leaf:
-- the task nets (after the program's `random_state_dict` of its smoke
-  test): convs N(0, 0.03), the two score heads |N(0, 0.9)| (positive,
-  so that the center and height scores are positive and their peaks
-  distinct), WeightNet's layers U(+-1 / sqrt(fan in)), every 1-D leaf its
-  init value (1 for a BatchNorm's gamma and running variance, else 0)
-  plus U(0, 0.05); then CenterNet's score head is scaled so that the
-  median confidence of the top-K proposals of the ring's first batch,
-  worked out by the plain reference, equals the configuration's gate
-  (`gate_scores`): about half the slots of a frame pass it, whatever the
-  seed;
-- Pose-ResNet (the program's `seeded_state_dict`): convs He-normal
-  (a transposed conv's fan in is 4 Cin), BatchNorm gamma 1 + U(-0.1,
-  0.1) (x 0.25 on a residual branch's last BN), beta and running mean
-  N(0, 0.05), running variance 1 + U(0, 0.1), the 1x1 output conv N(0,
-  1 / Cin) with bias N(0, 0.1).
-Frames are drawn on the device too and held in host memory, as a caller
+Frames are drawn on the device and held in host memory, as a caller
 holds decoded frames: images are smooth random colour fields plus pixel
 noise, normalized with ImageNet's mean and std; heatmaps are Gaussian
 blobs (sigma in heatmap pixels) at the projections of skeletons standing
-in the space, over a faint random background.
+in the space, over a faint random background. Weights are drawn on the
+run's device by `draw` from stream 0 of the seed, in the order and with
+the scales that the configuration's family (`families/<family>.py`)
+gives.
 """
 
 from __future__ import annotations
@@ -32,12 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from reference import geometry as geo
-from reference.nets import Bottleneck, FasterVoxelPose, PoseResNet
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
-HEADS = ("pose_net.center_net.output_hm.2.weight",
-         "pose_net.c2c_net.output_hm.weight")
 
 
 def stream_seed(seed: int, stream: int) -> int:
@@ -46,7 +29,7 @@ def stream_seed(seed: int, stream: int) -> int:
         % (2 ** 63)
 
 
-def _draw(shapes: dict, normal: dict, uniform: dict, gen, device) -> dict:
+def draw(shapes: dict, normal: dict, uniform: dict, gen, device) -> dict:
     """{key: tensor}: each normal leaf std * N(0, 1), each uniform leaf lo
     + (hi - lo) * U(0, 1), from one draw of each kind."""
     def sizes(keys):
@@ -66,103 +49,6 @@ def _draw(shapes: dict, normal: dict, uniform: dict, gen, device) -> dict:
             a, b = spec[k]
             out[k] = (a + b * part).reshape(shapes[k])
     return out
-
-
-def task_net_weights(J: int, feat: int, hidden: int, gen, device) -> dict:
-    with torch.device("meta"):
-        sd = FasterVoxelPose(J, feat, hidden).state_dict()
-    shapes = {k: tuple(v.shape) for k, v in sd.items()}
-    normal, uniform, heads = {}, {}, {}
-    for k, shape in shapes.items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        if len(shape) >= 2 and "weight_net" in k:
-            bound = 1.0 / np.sqrt(np.prod(shape[1:]))
-            uniform[k] = (-bound, 2 * bound)
-        elif k in HEADS:
-            heads[k] = 0.9
-        elif len(shape) >= 2:
-            normal[k] = (0.0, 0.03)
-        else:
-            one = k.endswith("running_var") or k.endswith(".weight")
-            uniform[k] = (float(one), 0.05)
-    out = _draw(shapes, {**normal, **{k: (0.0, v) for k, v in heads.items()}},
-                uniform, gen, device)
-    for k in heads:
-        out[k] = out[k].abs()
-    for k in shapes:
-        if k.endswith("num_batches_tracked"):
-            out[k] = torch.zeros((), dtype=torch.int64)
-    return out
-
-
-def backbone_weights(J: int, depth: int, gen, device) -> dict:
-    with torch.device("meta"):
-        net = PoseResNet(J, depth)
-    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
-    last = "bn3" if isinstance(net.layer1[0], Bottleneck) else "bn2"
-    normal, uniform = {}, {}
-    for k, shape in shapes.items():
-        name = k.rsplit(".", 1)[0]
-        if k.endswith("num_batches_tracked"):
-            continue
-        if len(shape) == 4:
-            fan = 4 * shape[0] if name.startswith("deconv_layers") \
-                else int(np.prod(shape[1:]))
-            gain = 1.0 if name == "final_layer" else 2.0
-            normal[k] = (0.0, float(np.sqrt(gain / fan)))
-        elif name == "final_layer":
-            normal[k] = (0.0, 0.1)
-        elif k.endswith(".weight"):
-            g = 0.25 if name.endswith(last) else 1.0
-            uniform[k] = (0.9 * g, 0.2 * g)
-        elif k.endswith("running_var"):
-            uniform[k] = (1.0, 0.1)
-        else:
-            normal[k] = (0.0, 0.05)
-    out = _draw(shapes, normal, uniform, gen, device)
-    for k in shapes:
-        if k.endswith("num_batches_tracked"):
-            out[k] = torch.zeros((), dtype=torch.int64)
-    return out
-
-
-def seeded_weights(config: dict, seed: int, device) -> tuple:
-    """(task nets' state dict, backbone's or None), float32 on the host,
-    drawn on `device` from `seed`."""
-    cfg = config["config"]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(stream_seed(seed, 0))
-    J = cfg["num_joints"]
-    sd = task_net_weights(J, cfg["num_channel_joint_feat"],
-                          cfg["num_channel_joint_hidden"], gen, device)
-    bb = None
-    if cfg["backbone"]:
-        bb = backbone_weights(J, cfg["resnet_layers"], gen, device)
-    host = [{k: v.cpu() for k, v in d.items()} if d is not None else None
-            for d in (sd, bb)]
-    return host[0], host[1]
-
-
-def gate_scores(config: dict, sd: dict, bb: dict | None, rig: dict,
-                first: torch.Tensor, device) -> float:
-    """Scale CenterNet's score head (weight and bias, in `sd`) so that the
-    median of the plain reference's top-K confidences on the batch
-    `first` equals the configuration's gate; returns the scale."""
-    from reference.fvp import Reference
-
-    cfg = config["config"]
-    ref = Reference.from_config(cfg, rig, sd, bb, device)
-    x = first.to(device)
-    hm = ref.heatmaps(x) if bb is not None else x
-    vol = ref.volume(hm)
-    hm2d, _ = ref.center(vol)
-    vals, flat = ref.nms_topk(hm2d, cfg["max_people"])
-    conf = vals * ref.heights(vol, flat).amax(dim=2)
-    scale = float(cfg["min_score"]) / float(conf.median())
-    for k in ("weight", "bias"):
-        sd[f"pose_net.center_net.output_hm.2.{k}"] *= scale
-    return scale
 
 
 def rig_of(config: dict) -> dict:

@@ -1,6 +1,7 @@
 """Model step: the model's operations on the frames completed in the
-window (counted from the configuration's shapes by fvpbench.counts,
-whatever implements them) over the window's wall time and the card's
+window (counted from the configuration's shapes by its family's
+`model_flops`, whatever implements them; the backbone's only where the
+traffic sends images) over the window's wall time and the card's
 published peak for the configuration's compute dtype (989 TFLOP/s bf16,
 67 TFLOP/s float32: TF32 is off)."""
 
@@ -10,6 +11,7 @@ from fvpbench import counts
 def read(run):
     if run.window_s <= 0 or not run.frames:
         return None
-    flops = counts.model_flops(run.config)["frame"] * run.frames
+    flops = run.cell.family.model_flops(run.config, run.cell.sends_images)["frame"] \
+        * run.frames
     peak = counts.PEAKS[run.config["config"]["compute_dtype"]]
     return 100.0 * flops / run.window_s / peak

@@ -1,7 +1,7 @@
 """A benchmark tree at tiny sizes for the CPU tests: a copy of the real
 one's BENCHMARK.json layout with two small configurations (with and
-without the backbone), their mixes and limits, and the real metric
-readers."""
+without the backbone), their mixes and limits, and the real families and
+metric readers."""
 
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ def make_tree(tmp: Path) -> tuple[Path, Path]:
     bench = root / "benchmark"
     for d in ("configs", "traffic", "limits"):
         (bench / d).mkdir(parents=True)
-    shutil.copytree(BENCH / "metrics", bench / "metrics")
+    for d in ("metrics", "families"):
+        shutil.copytree(BENCH / d, bench / d)
     doc = json.loads((ROOT / "BENCHMARK.json").read_text())
     doc["configs"], doc["workloads"] = [], []
     for cname, tname, cell in (("tiny-img", "img-b2", "tiny.img"),
